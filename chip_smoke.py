@@ -1,0 +1,447 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (fairfedmed_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py            # from the repository root, one CUDA card
+
+Phases, each printing one JSON line:
+
+1. ``card``: the card, its power limit, the versions, and the time to build
+   the CUDA kernels from ``fairfedmed_tpu_torch/csrc`` (one nvcc per source,
+   all at once).
+2. ``kernel_checks``: each attention kernel (forward, backward) against its
+   plain PyTorch version at the main path's shapes, fp32 (TF32 off) and bf16,
+   with the max error beside its tolerance; times of the kernel, the plain
+   version and ``scaled_dot_product_attention`` (a yardstick the port never
+   calls) from CUDA events.
+3. ``small_reference``: the FairLoRA trainer at the ``test-vit-224`` preset,
+   fp32, built from one seed on the CPU (plain attention) and on the GPU
+   (the kernels): logits and one training step must agree.
+4. ``main_path``: one FedOTPLoRA round of the GLP_OT_SVLoRA trainer at
+   ViT-B/16 full width (seeded random weights, bf16): 2 clients x 3 local
+   steps of batch 32 (two optimizer steps each), ``state_dict`` harvest,
+   ``average_weights_ema``, local prompt rows kept per client, then
+   ``test()`` on 100 images per client through ``Classification_oph``.  The
+   kernel launch counters are zeroed just before and read just after; the
+   counts must equal what the layer structure implies.  One more training
+   step then runs under torch.profiler (``main_path_profile``): kernel time
+   by class and the device's idle share of a step.
+
+Then the ``kernels`` line, the ``nvidia-smi`` name/power line, and last
+``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is then
+not 0 and the last line is not printed.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+import types
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from fairfedmed_tpu_torch.config import get_cfg_default
+from fairfedmed_tpu_torch.fed.aggregate import average_weights_ema
+from fairfedmed_tpu_torch.ops import _build
+from fairfedmed_tpu_torch.ops import attention as A
+from fairfedmed_tpu_torch.train.engine import build_trainer
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no sparsity
+ATTRIBUTES = ["gender", "race", "ethnicity", "language", "maritalstatus"]
+GROUPS = {"gender": 2, "race": 3, "ethnicity": 2, "language": 3, "maritalstatus": 5}
+CLASSNAMES = ["NOT Glaucoma", "Glaucoma"]
+# kernel tolerances, relative to the largest reference value: fp32 sums in
+# another order; bf16 outputs rounded once (2^-8) plus the backward's
+# delta taken from the rounded output
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_output")
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters=20, warmup=3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# --------------------------------------------------------------------------- #
+# phase 2: kernels against their plain versions
+# --------------------------------------------------------------------------- #
+
+KERNEL_SHAPES = {  # name: (n = batch*heads, L, dh, causal)
+    "vision_train": (32 * 12, 197, 64, False),
+    "vision_eval": (100 * 12, 197, 64, False),
+    "text_16": (32, 16, 64, True),
+    "text_77": (32, 77, 64, True),
+}
+
+
+def _bounds_ms(n, length, dh, dtype, causal):
+    """Least time for each function: bytes moved (each input read once, each
+    output written once) over HBM rate vs operations over the type's peak."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    t = n * length * dh * elt
+    rows = n * length * 4  # the fp32 log-sum-exp
+    mask = length * length * 4 if causal else 0
+    sq = n * length * length * dh
+    out = {}
+    for name, nbytes, flops in (("fwd", 4 * t + rows + mask, 4 * sq),
+                                ("bwd", 8 * t + rows + mask, 10 * sq)):
+        mem, ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+        out[name] = (max(mem, ops), "bytes" if mem >= ops else "operations")
+    return out
+
+
+def check_kernels(dev):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for shape_name, (n, length, dh, causal) in KERNEL_SHAPES.items():
+        mask = torch.triu(torch.full((length, length), float("-inf"), device=dev), 1) \
+            if causal else None
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn(n, length, dh, device=dev, generator=gen).to(dtype)
+                           for _ in range(4))
+            q = (q * dh ** -0.5).contiguous()
+            o, lse = A.attention_fwd(q, k, v, mask)
+            dq, dk, dv = A.attention_bwd(q, k, v, o, lse, do, mask)
+            torch.cuda.synchronize()
+            ro = A.reference_attention(q, k, v, mask)
+            refs = A.reference_attention_bwd(q, k, v, do, mask)
+            errs = {}
+            for name, got, ref in (("o", o, ro), ("dq", dq, refs[0]), ("dk", dk, refs[1]),
+                                   ("dv", dv, refs[2])):
+                err = (got.float() - ref.float()).abs().max().item()
+                tol = TOL[dtype] * max(1.0, ref.float().abs().max().item())
+                if not err <= tol:
+                    raise AssertionError(f"{shape_name} {dtype} {name}: max error {err} > {tol}")
+                errs[name] = {"max_abs_err": err, "tol": tol}
+            row = {"shape": shape_name, "n_L_dh": [n, length, dh], "causal": causal,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "fwd_max_abs_err": errs["o"]["max_abs_err"],
+                   "bwd_max_abs_err": max(errs[g]["max_abs_err"] for g in ("dq", "dk", "dv")),
+                   "errors": errs}
+            if dtype == torch.bfloat16:  # the main path's type: time it
+                row.update(time_attention(q, k, v, do, mask, o, lse))
+                bounds = _bounds_ms(n, length, dh, dtype, causal)
+                row.update({"fwd_bound_ms": bounds["fwd"][0], "fwd_bound_by": bounds["fwd"][1],
+                            "bwd_bound_ms": bounds["bwd"][0], "bwd_bound_by": bounds["bwd"][1]})
+            rows.append(row)
+    return rows
+
+
+def time_attention(q, k, v, do, mask, o, lse):
+    n, length, dh = q.shape
+    causal = mask is not None
+    q4, k4, v4 = (t.view(n, 1, length, dh).detach().requires_grad_(True) for t in (q, k, v))
+    do4 = do.view(n, 1, length, dh)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, scale=1.0, is_causal=causal)
+
+    sdpa_out = sdpa()
+    return {
+        "kernel_fwd_ms": cuda_ms(lambda: A.attention_fwd(q, k, v, mask)),
+        "kernel_bwd_ms": cuda_ms(lambda: A.attention_bwd(q, k, v, o, lse, do, mask)),
+        "kernel_fwd_bwd_ms": cuda_ms(lambda: A.attention_bwd(
+            q, k, v, *A.attention_fwd(q, k, v, mask), do, mask)),
+        "plain_fwd_ms": cuda_ms(lambda: A.reference_attention(q, k, v, mask)),
+        "plain_bwd_ms": cuda_ms(lambda: A.reference_attention_bwd(q, k, v, do, mask)),
+        "plain_fwd_bwd_ms": cuda_ms(lambda: (A.reference_attention(q, k, v, mask),
+                                             A.reference_attention_bwd(q, k, v, do, mask))),
+        "sdpa_fwd_ms": cuda_ms(sdpa),
+        "sdpa_bwd_ms": cuda_ms(lambda: torch.autograd.grad(sdpa_out, (q4, k4, v4), do4,
+                                                           retain_graph=True)),
+        "sdpa_fwd_bwd_ms": cuda_ms(lambda: torch.autograd.grad(sdpa(), (q4, k4, v4), do4)),
+    }
+
+
+# --------------------------------------------------------------------------- #
+# phases 3 and 4: the trainer
+# --------------------------------------------------------------------------- #
+
+def fairlora_cfg(backbone: str, size: int, prec: str):
+    """configs/trainers/GLP_OT/vit_b16_oph.yaml with the flags of
+    scripts/fairfedlora_fairfedmed.sh (attribute race), built in code."""
+    cfg = get_cfg_default()
+    cfg.SEED = 1
+    cfg.OUTPUT_DIR = OUT_DIR
+    cfg.MODEL.BACKBONE.NAME = backbone
+    cfg.MODEL.BACKBONE.PRETRAINED = False
+    cfg.INPUT.SIZE = (size, size)
+    cfg.INPUT.PIXEL_MEAN = [0.48145466, 0.4578275, 0.40821073]
+    cfg.INPUT.PIXEL_STD = [0.26862954, 0.26130258, 0.27577711]
+    cfg.DATASET.NAME = "FairFedMed"
+    cfg.DATASET.USERS = 2
+    cfg.DATASET.ATTRIBUTE_TYPE = "race"
+    cfg.DATASET.ATTRIBUTES = list(ATTRIBUTES)
+    cfg.DATASET.MODALITY_TYPE = "slo_fundus"
+    cfg.DATALOADER.TRAIN_X.BATCH_SIZE = 32
+    cfg.DATALOADER.TEST.BATCH_SIZE = 100
+    cfg.OPTIM.NAME = "sgd"
+    cfg.OPTIM.LR = 0.001
+    cfg.OPTIM.MAX_EPOCH = 1
+    cfg.OPTIM.LR_SCHEDULER = "single_step"
+    cfg.OPTIM.STEPSIZE = (200,)
+    cfg.OPTIM.GAMMA = 0.1
+    cfg.OPTIM.WARMUP_EPOCH = 0
+    cfg.OPTIM.WARMUP_TYPE = "constant"
+    cfg.TRAIN.CHECKPOINT_FREQ = 5
+    cfg.TRAIN.PRINT_FREQ = 10
+    cfg.TEST.EVALUATOR = "Classification_oph"
+    cfg.TRAINER.NAME = "GLP_OT_SVLoRA"
+    cfg.TRAINER.GLP_OT.PREC = prec
+    cfg.TRAINER.GLP_OT.N = 2
+    cfg.TRAINER.GLP_OT.N_CTX = 4
+    cfg.TRAINER.GLP_OT.OT = "None"
+    cfg.TRAINER.GLP_OT_LORA.UNFREEZE_IMAGE_ENCODER = True
+    cfg.TRAINER.GLP_OT_LORA.RANK = 12
+    cfg.TRAINER.GLP_OT_LORA.ALPHA = 2.0
+    cfg.TRAINER.GLP_OT_LORA.TYPE = "FairLoRA"
+    cfg.TRAINER.LAMBDA_FAIRNESS = 0.0
+    return cfg
+
+
+def make_batches(rng, n_batches, batch, size):
+    """Batch dicts as the FairFedMed ClientLoader yields them: grayscale SLO
+    fundus repeated to 3 channels, uint8.  Labels and every attribute are
+    laid out so each demographic group holds both classes (group AUCs are
+    defined), then shuffled."""
+    out = []
+    for _ in range(n_batches):
+        i = np.arange(batch)
+        order = rng.permutation(batch)
+        slo = rng.integers(0, 256, (batch, 1, size, size), dtype=np.uint8)
+        out.append({
+            "img": np.repeat(slo, 3, axis=1),
+            "label": (i % 2).astype(np.int32)[order],
+            "attrs": np.stack([(i // 2) % GROUPS[a] for a in ATTRIBUTES], 1).astype(np.int32)[order],
+            "n_valid": batch,
+        })
+    return out
+
+
+def make_dm(rng, n_train, train_batch, n_test, size):
+    return types.SimpleNamespace(
+        fed_train_loader_x_dict={c: make_batches(rng, n_train, train_batch, size) for c in (0, 1)},
+        fed_test_loader_x_dict={c: make_batches(rng, 1, n_test, size) for c in (0, 1)},
+        num_classes=2, lab2cname=dict(enumerate(CLASSNAMES)),
+        dataset=types.SimpleNamespace(classnames=list(CLASSNAMES)))
+
+
+def small_reference(dev):
+    """The same seeded trainer on the CPU (plain attention) and on the GPU (the
+    kernels), fp32 at test-vit-224 (vision head width 64, text 16)."""
+    cfg = fairlora_cfg("test-vit-224", 224, "fp32")
+    dm = make_dm(np.random.default_rng(7), 1, 8, 8, 224)
+    trainers = {d: build_trainer(cfg, dm, device=d) for d in ("cpu", dev)}
+    batch = dm.fed_train_loader_x_dict[0][0]
+    attr = torch.as_tensor(batch["attrs"][:, ATTRIBUTES.index("race")])
+    logits = {d: tr.model_inference(torch.as_tensor(batch["img"]).to(d), attr.to(d)).cpu()
+              for d, tr in trainers.items()}
+    steps = {}
+    for d, tr in trainers.items():
+        tr.batch_idx, tr.num_batches = 0, 2  # not the last batch: no LR step
+        steps[d] = (tr.forward_backward(batch), tr.state_dict())
+    logit_err = (logits["cpu"] - logits[dev]).abs().max().item()
+    loss_err = abs(steps["cpu"][0]["loss"] - steps[dev][0]["loss"])
+    state_err = max(float(np.abs(steps["cpu"][1][k] - steps[dev][1][k]).max())
+                    for k in steps["cpu"][1])
+    tol = {"logits": 1e-4, "loss": 1e-5, "state": 1e-6}
+    res = {"phase": "small_reference", "preset": "test-vit-224", "prec": "fp32",
+           "logits_max_abs_err": logit_err, "loss_abs_err": loss_err,
+           "state_max_abs_err": state_err, "tol": tol,
+           "logits_shape": list(logits[dev].shape)}
+    if not (logit_err <= tol["logits"] and loss_err <= tol["loss"] and state_err <= tol["state"]
+            and torch.isfinite(logits[dev]).all()):
+        raise AssertionError(f"GPU trainer disagrees with the CPU trainer: {res}")
+    return res
+
+
+def main_path(dev):
+    cfg = fairlora_cfg("ViT-B/16", 224, "fp16")
+    n_steps, batch, n_test = 3, cfg.DATALOADER.TRAIN_X.BATCH_SIZE, cfg.DATALOADER.TEST.BATCH_SIZE
+    dm = make_dm(np.random.default_rng(cfg.SEED), n_steps, batch, n_test, 224)
+    t0 = time.perf_counter()
+    trainer = build_trainer(cfg, dm, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    clip = trainer.bundle.clip_cfg
+
+    steps, current = [], {}
+    forward_backward = trainer.forward_backward
+
+    def timed_step(b):  # forward_backward ends in a host fetch: the clock is honest
+        t = time.perf_counter()
+        out = forward_backward(b)
+        steps.append({"client": current["idx"], "loss": out["loss"], "acc": out["acc"],
+                      "ms": (time.perf_counter() - t) * 1e3})
+        return out
+
+    trainer.forward_backward = timed_step
+    n_by_client = [len(dm.fed_train_loader_x_dict[c]) * batch for c in (0, 1)]
+    n_by_attr = [np.bincount(np.concatenate([b["attrs"][:, 1] for b in
+                                             dm.fed_train_loader_x_dict[c]]), minlength=3).tolist()
+                 for c in (0, 1)]
+
+    torch.cuda.reset_peak_memory_stats()
+    A.attention_fwd.launches = 0
+    A.attention_bwd.launches = 0
+    t_round = time.perf_counter()
+    global_w = trainer.state_dict()
+    local = {}
+    for idx in (0, 1):
+        current["idx"] = idx
+        trainer.load_state_dict(global_w)
+        trainer.train(idx=idx, global_epoch=0, is_fed=True, is_last_client=idx == 1)
+        local[idx] = trainer.state_dict()
+    print("Use EMA")
+    global_w = average_weights_ema(global_w, local, [0, 1], n_by_client, n_by_attr, 0, 50,
+                                   shared_half_s=True)
+    results = []
+    for idx in (0, 1):
+        personal = copy.deepcopy(global_w)
+        personal["prompt_learner.ctx"][1:2] = local[idx]["prompt_learner.ctx"][1:2]
+        trainer.load_state_dict(personal)
+        results.append(trainer.test(idx=idx))
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t_round
+    launches = {"attention_fwd": A.attention_fwd.launches,
+                "attention_bwd": A.attention_bwd.launches}
+
+    n_train_steps, n_eval_batches = len(steps), 2
+    v, t = clip.vision_layers, clip.transformer_layers
+    # every batch (train or eval) runs each vision and text block once; the
+    # backward skips vision block 0, whose input carries no gradient
+    expected = {"attention_fwd": (n_train_steps + n_eval_batches) * (v + t),
+                "attention_bwd": n_train_steps * (v - 1 + t)}
+    clients = [{"client": i, "acc": r[0], "auc": r[3],
+                "esauc_race": 100.0 * float(r[7][ATTRIBUTES.index("race")])}
+               for i, r in enumerate(results)]
+    res = {"phase": "main_path", "model": cfg.MODEL.BACKBONE.NAME, "width": [clip.vision_width,
+                                                                clip.transformer_width],
+           "layers": [v, t], "prec": "fp16 (bf16)", "batch": batch, "test_batch": n_test,
+           "build_s": build_s, "steps": steps,
+           "step_ms_median_after_first": statistics.median(s["ms"] for s in steps[1:]),
+           "round_s": round_s, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "clients": clients, "launches": launches, "expected_launches": expected}
+    emit(res)
+    if len(steps) != 2 * n_steps or not all(np.isfinite(s["loss"]) for s in steps):
+        raise AssertionError(f"non-finite or missing losses: {steps}")
+    if not all(np.isfinite([c["auc"], c["esauc_race"]]).all() for c in clients):
+        raise AssertionError(f"non-finite AUC: {clients}")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches} != expected {expected}")
+    emit(profile_step(trainer, dm.fed_train_loader_x_dict[0][0],
+                      res["step_ms_median_after_first"]))
+    return launches
+
+
+def _kernel_class(name: str) -> str:
+    if "attention_" in name:
+        return "attention (port kernels)"
+    if any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "nvjet", "wgmma")):
+        return "matmul (cuBLAS)"
+    return "other (elementwise, norms, reductions, copies)"
+
+
+def profile_step(trainer, batch, step_ms):
+    """One more training step of the main path under torch.profiler: kernel
+    time by class, and the device's idle share of an unprofiled step
+    (``step_ms``: the round's median step after the first)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.batch_idx, trainer.num_batches = 0, 2  # not the last batch: no LR step
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.forward_backward(batch)
+        torch.cuda.synchronize()
+    by_class, by_kernel = {}, {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.device_time_total > 0:
+            ms = evt.device_time_total / 1e3
+            cls = _kernel_class(evt.key)
+            by_class[cls] = by_class.get(cls, 0.0) + ms
+            by_kernel[evt.key[:90]] = ms
+    device_ms = sum(by_class.values())
+    return {"phase": "main_path_profile", "kernel_ms": device_ms, "unprofiled_step_ms": step_ms,
+            "device_idle_share": 1 - device_ms / step_ms,
+            "kernel_ms_by_class": by_class,
+            "top_kernels_ms": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]}
+
+
+def kernels_line(rows, launches):
+    """The two kernels at the vision training shape in bf16, the shape and type
+    the main path spends most of its attention time on."""
+    row = next(r for r in rows if r["shape"] == "vision_train" and r["dtype"] == "bfloat16")
+    common = {"route": "cuda"}
+    return {"kernels": [
+        dict(common, name="attention_fwd", source="fairfedmed_tpu_torch/csrc/attention_fwd.cu",
+             replaces="fairfedmed_tpu/ops/attention.py:37 (_fwd_kernel, via _attend_impl :105)",
+             launches=launches["attention_fwd"], max_abs_err=row["fwd_max_abs_err"],
+             ms=row["kernel_fwd_ms"], plain_ms=row["plain_fwd_ms"],
+             bound_ms=row["fwd_bound_ms"], bound_by=row["fwd_bound_by"],
+             library_ms=row["sdpa_fwd_ms"]),
+        dict(common, name="attention_bwd", source="fairfedmed_tpu_torch/csrc/attention_bwd.cu",
+             replaces="fairfedmed_tpu/ops/attention.py:54 (_bwd_kernel, via _attend_bwd_impl :118)",
+             launches=launches["attention_bwd"], max_abs_err=row["bwd_max_abs_err"],
+             ms=row["kernel_bwd_ms"], plain_ms=row["plain_bwd_ms"],
+             bound_ms=row["bwd_bound_ms"], bound_by=row["bwd_bound_by"],
+             library_ms=row["sdpa_bwd_ms"]),
+    ]}
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    dev = "cuda"
+    smi = nvidia_smi_line()
+    t0 = time.perf_counter()
+    logs = _build.build()
+    build_s = time.perf_counter() - t0
+    spills = sorted({line.strip() for log in logs.values() for line in log.splitlines()
+                     if "spill" in line and not line.strip().startswith("0 bytes stack")})
+    emit({"phase": "card", "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "device": torch.cuda.get_device_name(0), "kernel_build_s": build_s,
+          "kernels_built": sorted(logs), "ptxas_spill_lines": spills})
+
+    rows = check_kernels(dev)
+    emit({"phase": "kernel_checks", "rows": rows})
+    emit(small_reference(dev))
+    launches = main_path(dev)
+    emit(kernels_line(rows, launches))
+    print(nvidia_smi_line())
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,103 @@
+"""Shared CLIP model assembly and losses for the method trainers.
+
+Port of ``fairfedmed_tpu/train/clip_common.py``.  ``load_clip_bundle`` builds
+the frozen backbone from a preset with a seeded random init; loading an
+OpenAI checkpoint is not ported yet and raises when one is present.  Tiny
+``test-vit`` presets keep the tests fast.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import torch
+import torch.nn.functional as F
+
+from ..core.device import resolve_device
+from ..core.precision import Policy, policy_from_prec
+from ..models.clip_model import PRESETS, CLIPConfig, init_clip_params
+
+TEST_PRESETS = {
+    "test-vit": CLIPConfig(
+        embed_dim=32, image_resolution=32, vision_layers=2, vision_width=64,
+        vision_patch_size=8, transformer_width=32, transformer_heads=4,
+        transformer_layers=2,
+    ),
+    "test-vit-224": CLIPConfig(
+        embed_dim=64, image_resolution=224, vision_layers=2, vision_width=64,
+        vision_patch_size=32, transformer_width=64, transformer_heads=4,
+        transformer_layers=2,
+    ),
+}
+
+
+@dataclasses.dataclass
+class CLIPBundle:
+    params: dict  # frozen backbone tree (policy.param_dtype; logit_scale fp32)
+    clip_cfg: CLIPConfig
+    policy: Policy
+    pretrained: bool
+    backbone_type: str = "vit"
+
+
+def _checkpoint_candidates(name: str, root: str):
+    fname = name.replace("/", "-") + ".pt"
+    return [os.path.join(root, fname), os.path.join(root, "clip", fname)] if root else []
+
+
+def load_clip_bundle(cfg, prec: str, device=None) -> CLIPBundle:
+    """The frozen CLIP backbone named by ``cfg.MODEL.BACKBONE.NAME`` on
+    ``device`` (default ``cuda``), randomly initialised from ``cfg.SEED``
+    (the same weights on every device)."""
+    device = resolve_device(device)
+    name = cfg.MODEL.BACKBONE.NAME
+    policy = policy_from_prec(prec)
+    if name.startswith("RN") or name == "test-rn":
+        raise NotImplementedError(f"ResNet CLIP backbones ({name}) are not ported yet")
+    if name in TEST_PRESETS:
+        clip_cfg = TEST_PRESETS[name]
+    else:
+        clip_cfg = PRESETS.get(name)
+        if clip_cfg is None:
+            raise ValueError(f"Unknown CLIP backbone: {name}")
+        found = [c for c in _checkpoint_candidates(name, cfg.DATASET.ROOT) if os.path.exists(c)]
+        if cfg.MODEL.BACKBONE.PRETRAINED and found:
+            raise NotImplementedError(f"loading the CLIP checkpoint {found[0]} is not ported yet")
+        print(f"WARNING: no checkpoint loaded for {name}; using random init")
+    # drawn on the CPU: the same seed gives the same weights on every device
+    gen = torch.Generator().manual_seed(cfg.SEED if cfg.SEED >= 0 else 0)
+    params = init_clip_params(gen, clip_cfg, dtype=policy.param_dtype, device=device)
+    params["logit_scale"] = params["logit_scale"].float()
+    return CLIPBundle(params=params, clip_cfg=clip_cfg, policy=policy, pretrained=False)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return F.cross_entropy(logits.float(), labels.long())
+
+
+def fairness_confidence_loss(logits, labels, attr, num_groups: int,
+                             differentiable: bool = False) -> torch.Tensor:
+    """Confidence-gap fairness regulariser (GLP_OT_SVLoRA.py:908-948).
+
+    Per group g: c_g = 1 - mean_{i in g} p_i[y_i]; loss = mean_g |c_g - mean(c)|
+    over the groups present.  The reference builds the group vector with
+    ``torch.tensor(list(...))``, which detaches it, so by default the term
+    adds to the loss and not to the gradient; ``differentiable=True`` gives
+    the intended gradient.
+    """
+    probs = torch.softmax(logits.float(), dim=-1)
+    correct = probs.gather(1, labels.long()[:, None])[:, 0]
+    one_hot = F.one_hot(attr.long(), num_groups).float()  # [B, G]
+    count = one_hot.sum(0)
+    sum_conf = (one_hot * correct[:, None]).sum(0)
+    present = count > 0
+    n_present = present.sum().clamp_min(1)
+    conf = 1.0 - sum_conf / count.clamp_min(1.0)
+    mean_conf = torch.where(present, conf, 0.0).sum() / n_present
+    loss = torch.where(present, (conf - mean_conf).abs(), 0.0).sum() / n_present
+    return loss if differentiable else loss.detach()
+
+
+def accuracy_from_logits(logits, labels) -> torch.Tensor:
+    return (logits.argmax(-1) == labels).float().mean() * 100.0

@@ -1,0 +1,215 @@
+"""Trainer engine (port of ``fairfedmed_tpu/train/engine.py``; capability
+match of Dassl/dassl/engine/trainer.py:108-751).
+
+Model state is a frozen tree (the CLIP backbone) and a trainable tree
+(prompt context, adapters) of tensors.  The federated weight exchange
+(``state_dict``/``load_state_dict``) moves only the trainable tree, as
+dotted-path numpy dicts with the reference's key names, so aggregation
+predicates such as ``'lora_S' in key`` carry over.
+
+In this port the caller hands the trainer its data: ``dm`` carries
+``fed_train_loader_x_dict`` / ``fed_test_loader_x_dict`` (per-client
+iterables of the batch dicts the JAX package's ``ClientLoader`` yields),
+``num_classes``, ``lab2cname`` and ``dataset.classnames``.  The printed lines
+match the JAX package's byte for byte (``tools/parse_test_res.py`` reads them).
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import time
+from typing import Dict, Optional
+
+import numpy as np
+
+from ..core.device import resolve_device
+from ..evaluation.evaluator import build_evaluator
+from ..utils.meters import AverageMeter, MetricMeter
+from ..utils.registry import TRAINER_REGISTRY
+from .optim import LRSchedule, set_learning_rate
+
+
+def build_trainer(cfg, dm, device=None):
+    """The trainer named by ``cfg.TRAINER.NAME``, on ``device`` (default
+    ``cuda``; ``"cpu"`` runs the plain PyTorch paths)."""
+    from . import trainers  # noqa: F401  (registers the trainers)
+
+    return TRAINER_REGISTRY.get(cfg.TRAINER.NAME)(cfg, dm, device=device)
+
+
+class TrainerBase:
+    """Generic lifecycle over one client's local epochs."""
+
+    def __init__(self):
+        self.epoch = 0
+        self.start_epoch = 0
+        self.max_epoch = 0
+
+    def train(self, idx=-1, global_epoch=0, is_fed=False, is_last_client=False):
+        """Run MAX_EPOCH local epochs for client ``idx`` (TrainerBase.train,
+        trainer.py:281-291)."""
+        self.set_model_mode("train")
+        for self.epoch in range(self.start_epoch, self.max_epoch):
+            self.before_epoch()
+            self.run_epoch(idx, global_epoch)
+            self.after_epoch(idx, global_epoch, is_last_client)
+
+    def before_epoch(self):
+        pass
+
+    def after_epoch(self, idx, global_epoch, is_last_client):
+        pass
+
+    def run_epoch(self, idx, global_epoch):
+        raise NotImplementedError
+
+    def set_model_mode(self, mode="train"):
+        self._mode = mode
+
+    def detect_anomaly(self, loss):
+        if not np.isfinite(loss):
+            raise FloatingPointError("Loss is infinite or NaN!")
+
+    def state_dict(self) -> Dict[str, np.ndarray]:
+        raise NotImplementedError
+
+    def load_state_dict(self, state: Dict[str, np.ndarray], strict: bool = False):
+        raise NotImplementedError
+
+    def save_model(self, epoch, directory, idx=None):
+        """Grad-only checkpoint ``epoch{g}_client{i}.npz`` (save_model_with_grad,
+        trainer.py:177-186)."""
+        os.makedirs(directory, exist_ok=True)
+        tag = f"epoch{epoch}_client{idx}" if idx is not None else f"epoch{epoch}"
+        path = os.path.join(directory, f"{tag}.npz")
+        np.savez(path, **self.state_dict())
+        return path
+
+
+class SimpleTrainer(TrainerBase):
+    """Model, evaluator and the federated train/test lifecycle over the
+    caller's per-client loaders (SimpleTrainer, trainer.py:345-589)."""
+
+    def __init__(self, cfg, dm, device=None):
+        super().__init__()
+        self.check_cfg(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.start_epoch = self.epoch = 0
+        self.max_epoch = cfg.OPTIM.MAX_EPOCH
+        self.output_dir = cfg.OUTPUT_DIR
+
+        self.dm = dm
+        self.fed_train_loader_x_dict = dm.fed_train_loader_x_dict
+        self.fed_test_loader_x_dict = dm.fed_test_loader_x_dict
+        self.num_classes = dm.num_classes
+        self.lab2cname = dm.lab2cname
+        self.build_model()
+        self.evaluator = build_evaluator(cfg, lab2cname=self.lab2cname)
+
+        # the reference steps its scheduler once per client-local epoch
+        self.lr_sched: Optional[LRSchedule] = getattr(self, "lr_sched", None)
+        self._lr_steps = 0
+
+    def check_cfg(self, cfg):
+        pass
+
+    def build_model(self):
+        raise NotImplementedError
+
+    def after_epoch(self, idx, global_epoch, is_last_client):
+        """Per-client grad-only checkpoint at a local-epoch CHECKPOINT_FREQ
+        cadence, and always at the last local epoch of the round
+        (trainer.py:497-521)."""
+        last_epoch = (self.epoch + 1) == self.max_epoch
+        freq = self.cfg.TRAIN.CHECKPOINT_FREQ
+        meet_freq = (self.epoch + 1) % freq == 0 if freq > 0 else False
+        if meet_freq or last_epoch:
+            path = self.save_model(global_epoch, os.path.join(self.output_dir, "checkpoints"),
+                                   idx=idx)
+            print("Save checkpoint to", path)
+
+    def test(self, idx=-1, current_epoch=0):
+        """Evaluate client ``idx``; returns list(results.values()) positionally
+        (trainer.py:523-569 + federated_main.py:686-690)."""
+        self.set_model_mode("eval")
+        self.evaluator.reset()
+        print(f"Evaluate on the client{idx}_test set")
+        for batch in self.fed_test_loader_x_dict[idx]:
+            inp, label, attrs, tgt_attr = self.parse_batch_test(batch)
+            n = batch["n_valid"]
+            output = self.model_inference(inp, tgt_attr).float().cpu().numpy()[:n]
+            attrs_h = None if attrs is None else np.asarray(attrs)[:n].T  # [A, B]
+            self.evaluator.process(output, np.asarray(label)[:n], attrs_h)
+        return list(self.evaluator.evaluate().values())
+
+    def model_inference(self, inp, attr=None):
+        raise NotImplementedError
+
+    def parse_batch_test(self, batch):
+        return batch["img"], batch["label"], batch.get("attrs"), None
+
+
+class TrainerX(SimpleTrainer):
+    """Supervised epoch loop over one client's loader
+    (TrainerX.run_epoch, trainer.py:685-741)."""
+
+    def run_epoch(self, idx, global_epoch):
+        self.set_model_mode("train")
+        losses = MetricMeter()
+        batch_time = AverageMeter()
+        data_time = AverageMeter()
+
+        loader = self.fed_train_loader_x_dict[idx]
+        self.num_batches = len(loader)
+        lr_steps_before = self._lr_steps
+        n_seen = 0
+        end = time.time()
+        for self.batch_idx, batch in enumerate(loader):
+            n_seen += 1
+            data_time.update(time.time() - end)
+            loss_summary = self.forward_backward(batch)
+            batch_time.update(time.time() - end)
+            if loss_summary:
+                losses.update(loss_summary)
+
+            meet_freq = (self.batch_idx + 1) % self.cfg.TRAIN.PRINT_FREQ == 0
+            only_few_batches = self.num_batches < self.cfg.TRAIN.PRINT_FREQ
+            if meet_freq or only_few_batches:
+                nb_remain = self.num_batches - self.batch_idx - 1
+                eta = str(datetime.timedelta(seconds=int(batch_time.avg * nb_remain)))
+                print(
+                    f"epoch [{self.epoch + 1}/{self.max_epoch}]"
+                    f"[{self.batch_idx + 1}/{self.num_batches}]"
+                    f"\ttime {batch_time.val:.3f} ({batch_time.avg:.3f})"
+                    f"\tdata {data_time.val:.3f} ({data_time.avg:.3f})"
+                    f"\teta {eta}"
+                    f"\t{losses}"
+                    f"\tlr {self.get_current_lr():.6e}"
+                )
+            end = time.time()
+
+        # The LR schedule steps on the batch where (batch_idx + 1) ==
+        # num_batches, but len(loader) is an estimate for structured
+        # samplers: if the stream ended short the gate never fired, so step
+        # here instead.  An empty epoch does not step (the reference's gate
+        # never fires on an empty loader either).
+        if n_seen and self._lr_steps == lr_steps_before:
+            self.update_lr()
+            if getattr(self, "optimizer", None) is not None:
+                set_learning_rate(self.optimizer, self.get_current_lr())
+
+    def get_current_lr(self) -> float:
+        if self.lr_sched is None:
+            return float(self.cfg.OPTIM.LR)
+        return self.lr_sched.lr(self._lr_steps)
+
+    def update_lr(self):
+        """Advance the per-epoch LR step counter (trainer.py:253-258), once per
+        registered model name: with an unfrozen image encoder the reference
+        advances the schedule by two per local epoch."""
+        self._lr_steps += getattr(self, "lr_step_multiplier", 1)
+
+    def forward_backward(self, batch):
+        raise NotImplementedError

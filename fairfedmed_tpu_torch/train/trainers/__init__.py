@@ -1,0 +1,3 @@
+"""Method trainers; importing this package registers them."""
+
+from .glp_ot import GLP_OT_SVLoRA  # noqa: F401
