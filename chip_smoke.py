@@ -12,7 +12,11 @@ Phases, each printing one JSON line:
    plain PyTorch version at the main path's shapes, fp32 (TF32 off) and bf16,
    with the max error beside its tolerance; times of the kernel, the plain
    version and ``scaled_dot_product_attention`` (a yardstick the port never
-   calls) from CUDA events.
+   calls).  Times are device time from torch.profiler (the kernels' summed
+   durations), warm (one input set, resident in L2) and L2-cold (rotating
+   over input sets that together exceed 4x the L2); beside them, CUDA events
+   around back-to-back calls and the host's enqueue time per call, which
+   show when a call is bound by the host rather than the device.
 3. ``small_reference``: the FairLoRA trainer at the ``test-vit-224`` preset,
    fp32, built from one seed on the CPU (plain attention) and on the GPU
    (the kernels): logits and one training step must agree.
@@ -26,7 +30,10 @@ Phases, each printing one JSON line:
    step then runs under torch.profiler (``main_path_profile``): kernel time
    by class and the device's idle share of a step.
 
-Then the ``kernels`` line, the ``nvidia-smi`` name/power line, and last
+Then the ``kernels`` line (with each tensor-core kernel's registers and
+spills from ptxas, its shared memory and waves from the CUDA runtime, and
+its bound share from the cold time), the ``nvidia-smi`` name/power line,
+and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is then
 not 0 and the last line is not printed.
 """
@@ -35,7 +42,9 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -53,6 +62,7 @@ from fairfedmed_tpu_torch.ops import attention as A
 from fairfedmed_tpu_torch.train.engine import build_trainer
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+L2_BYTES = 50e6
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no sparsity
 ATTRIBUTES = ["gender", "race", "ethnicity", "language", "maritalstatus"]
 GROUPS = {"gender": 2, "race": 3, "ethnicity": 2, "language": 3, "maritalstatus": 5}
@@ -75,6 +85,8 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(fn, iters=20, warmup=3) -> float:
+    """CUDA events around a run of back-to-back calls: device time plus any
+    gap in which the device waits for the host to enqueue the next call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -85,6 +97,42 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fns, warmup=3) -> float:
+    """Mean device time of one call: the summed durations of the CUDA kernels
+    that the calls launch (torch.profiler), cycling through ``fns`` at least
+    once.  Unlike CUDA events around a run of calls, it leaves out the gaps
+    when the device waits for the host to enqueue."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    iters = max(20, len(fns))
+    with profile(activities=[ProfilerActivity.CUDA]):  # a first profiling pass may record nothing
+        for i in range(warmup):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return us / 1e3 / iters
+
+
+def host_ms(fn, iters=20, warmup=3) -> float:
+    """Host time to enqueue one call (no synchronisation inside the run)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
 
 
 # --------------------------------------------------------------------------- #
@@ -147,6 +195,7 @@ def check_kernels(dev):
                    "errors": errs}
             if dtype == torch.bfloat16:  # the main path's type: time it
                 row.update(time_attention(q, k, v, do, mask, o, lse))
+                row.update(time_attention_cold(n, length, dh, dtype, mask, gen))
                 bounds = _bounds_ms(n, length, dh, dtype, causal)
                 row.update({"fwd_bound_ms": bounds["fwd"][0], "fwd_bound_by": bounds["fwd"][1],
                             "bwd_bound_ms": bounds["bwd"][0], "bwd_bound_by": bounds["bwd"][1]})
@@ -164,20 +213,78 @@ def time_attention(q, k, v, do, mask, o, lse):
         return F.scaled_dot_product_attention(q4, k4, v4, scale=1.0, is_causal=causal)
 
     sdpa_out = sdpa()
+
+    def fwd():
+        return A.attention_fwd(q, k, v, mask)
+
+    def bwd():
+        return A.attention_bwd(q, k, v, o, lse, do, mask)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, (q4, k4, v4), do4, retain_graph=True)
+
     return {
-        "kernel_fwd_ms": cuda_ms(lambda: A.attention_fwd(q, k, v, mask)),
-        "kernel_bwd_ms": cuda_ms(lambda: A.attention_bwd(q, k, v, o, lse, do, mask)),
-        "kernel_fwd_bwd_ms": cuda_ms(lambda: A.attention_bwd(
-            q, k, v, *A.attention_fwd(q, k, v, mask), do, mask)),
-        "plain_fwd_ms": cuda_ms(lambda: A.reference_attention(q, k, v, mask)),
-        "plain_bwd_ms": cuda_ms(lambda: A.reference_attention_bwd(q, k, v, do, mask)),
-        "plain_fwd_bwd_ms": cuda_ms(lambda: (A.reference_attention(q, k, v, mask),
-                                             A.reference_attention_bwd(q, k, v, do, mask))),
-        "sdpa_fwd_ms": cuda_ms(sdpa),
-        "sdpa_bwd_ms": cuda_ms(lambda: torch.autograd.grad(sdpa_out, (q4, k4, v4), do4,
-                                                           retain_graph=True)),
-        "sdpa_fwd_bwd_ms": cuda_ms(lambda: torch.autograd.grad(sdpa(), (q4, k4, v4), do4)),
+        "kernel_fwd_ms": device_ms([fwd]),
+        "kernel_bwd_ms": device_ms([bwd]),
+        "kernel_fwd_ms_events": cuda_ms(fwd),
+        "kernel_bwd_ms_events": cuda_ms(bwd),
+        "kernel_fwd_host_ms": host_ms(fwd),
+        "kernel_bwd_host_ms": host_ms(bwd),
+        "plain_fwd_ms": device_ms([lambda: A.reference_attention(q, k, v, mask)]),
+        "plain_bwd_ms": device_ms([lambda: A.reference_attention_bwd(q, k, v, do, mask)]),
+        "sdpa_fwd_ms": device_ms([sdpa]),
+        "sdpa_bwd_ms": device_ms([sdpa_bwd]),
     }
+
+
+def time_attention_cold(n, length, dh, dtype, mask, gen):
+    """Kernel and SDPA device times with L2 cold: calls rotate over input
+    sets whose bytes together exceed 4x the L2 (at most 256 sets: the text
+    shapes' then exceed it 1.7x)."""
+    dev = mask.device if mask is not None else "cuda"
+    causal = mask is not None
+    set_bytes = 5 * n * length * dh * torch.tensor([], dtype=dtype).element_size()
+    sets = []
+    for _ in range(min(256, max(2, math.ceil(4 * L2_BYTES / set_bytes)))):
+        q, k, v, do = (torch.randn(n, length, dh, device=dev, generator=gen).to(dtype)
+                       for _ in range(4))
+        q = (q * dh ** -0.5).contiguous()
+        o, lse = A.attention_fwd(q, k, v, mask)
+        q4, k4, v4 = (t.view(n, 1, length, dh).detach().requires_grad_(True) for t in (q, k, v))
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0, is_causal=causal)
+        sets.append((q, k, v, do, o, lse, q4, k4, v4, out4))
+
+    def fwd(s):
+        return lambda: A.attention_fwd(s[0], s[1], s[2], mask)
+
+    def bwd(s):
+        return lambda: A.attention_bwd(s[0], s[1], s[2], s[4], s[5], s[3], mask)
+
+    def sdpa_fwd(s):
+        return lambda: F.scaled_dot_product_attention(s[6], s[7], s[8], scale=1.0,
+                                                      is_causal=causal)
+
+    def sdpa_bwd(s):
+        return lambda: torch.autograd.grad(s[9], (s[6], s[7], s[8]),
+                                           s[3].view(n, 1, length, dh), retain_graph=True)
+
+    return {"input_sets_cold": len(sets),
+            "kernel_fwd_ms_cold": device_ms([fwd(s) for s in sets]),
+            "kernel_bwd_ms_cold": device_ms([bwd(s) for s in sets]),
+            "sdpa_fwd_ms_cold": device_ms([sdpa_fwd(s) for s in sets]),
+            "sdpa_bwd_ms_cold": device_ms([sdpa_bwd(s) for s in sets])}
+
+
+def ptxas_kernel(log: str, entry: str) -> dict:
+    """Registers and spill bytes that ``nvcc -Xptxas=-v`` reported for the
+    first entry function whose mangled name contains ``entry``."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and entry in line:
+            props = " ".join(lines[i + 1:i + 4])
+            return {"registers": int(re.search(r"Used (\d+) registers", props).group(1)),
+                    "spill_bytes": int(re.search(r"(\d+) bytes spill stores", props).group(1))}
+    raise AssertionError(f"no ptxas report for {entry}")
 
 
 # --------------------------------------------------------------------------- #
@@ -397,23 +504,35 @@ def profile_step(trainer, batch, step_ms):
 
 def kernels_line(rows, launches):
     """The two kernels at the vision training shape in bf16, the shape and type
-    the main path spends most of its attention time on."""
+    the main path spends most of its attention time on, with the tensor-core
+    kernels' resources: registers and spills from ptxas, shared memory and
+    resident blocks from the CUDA runtime, waves = blocks / (SMs x resident
+    blocks per SM), and bound share = bound / cold time."""
     row = next(r for r in rows if r["shape"] == "vision_train" and r["dtype"] == "bfloat16")
-    common = {"route": "cuda"}
-    return {"kernels": [
-        dict(common, name="attention_fwd", source="fairfedmed_tpu_torch/csrc/attention_fwd.cu",
-             replaces="fairfedmed_tpu/ops/attention.py:37 (_fwd_kernel, via _attend_impl :105)",
-             launches=launches["attention_fwd"], max_abs_err=row["fwd_max_abs_err"],
-             ms=row["kernel_fwd_ms"], plain_ms=row["plain_fwd_ms"],
-             bound_ms=row["fwd_bound_ms"], bound_by=row["fwd_bound_by"],
-             library_ms=row["sdpa_fwd_ms"]),
-        dict(common, name="attention_bwd", source="fairfedmed_tpu_torch/csrc/attention_bwd.cu",
-             replaces="fairfedmed_tpu/ops/attention.py:54 (_bwd_kernel, via _attend_bwd_impl :118)",
-             launches=launches["attention_bwd"], max_abs_err=row["bwd_max_abs_err"],
-             ms=row["kernel_bwd_ms"], plain_ms=row["plain_bwd_ms"],
-             bound_ms=row["bwd_bound_ms"], bound_by=row["bwd_bound_by"],
-             library_ms=row["sdpa_bwd_ms"]),
-    ]}
+    n, length, dh = row["n_L_dh"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for kind, tpu_line in (("fwd", "fairfedmed_tpu/ops/attention.py:37 (_fwd_kernel, via "
+                                    "_attend_impl :105)"),
+                           ("bwd", "fairfedmed_tpu/ops/attention.py:54 (_bwd_kernel, via "
+                                   "_attend_bwd_impl :118)")):
+        name = f"attention_{kind}"
+        log = _build.library_path(name).with_suffix(".log").read_text()
+        info = A.launch_info(kind, n, length, dh)
+        out.append(dict(
+            ptxas_kernel(log, f"{name}_mma_kernelILi{dh}E"), name=name, route="cuda",
+            source=f"fairfedmed_tpu_torch/csrc/{name}.cu", replaces=tpu_line,
+            launches=launches[name], max_abs_err=row[f"{kind}_max_abs_err"],
+            ms=row[f"kernel_{kind}_ms"], ms_cold=row[f"kernel_{kind}_ms_cold"],
+            ms_events=row[f"kernel_{kind}_ms_events"], host_ms=row[f"kernel_{kind}_host_ms"],
+            plain_ms=row[f"plain_{kind}_ms"], bound_ms=row[f"{kind}_bound_ms"],
+            bound_by=row[f"{kind}_bound_by"], library_ms=row[f"sdpa_{kind}_ms"],
+            library_ms_cold=row[f"sdpa_{kind}_ms_cold"],
+            bound_share=row[f"{kind}_bound_ms"] / row[f"kernel_{kind}_ms_cold"],
+            smem_bytes=info["smem_bytes"], threads=info["threads"],
+            blocks=info["blocks"], blocks_per_sm=info["blocks_per_sm"],
+            waves=info["blocks"] / (sms * info["blocks_per_sm"])))
+    return {"kernels": out}
 
 
 def main():

@@ -1,15 +1,31 @@
 // Shared pieces of the fused attention kernels (attention_fwd.cu,
-// attention_bwd.cu).
+// attention_bwd.cu), which replace the two Pallas TPU kernels of
+// fairfedmed_tpu/ops/attention.py (_fwd_kernel and _bwd_kernel).
 //
 // Layout: q, k, v, o and their gradients are [n, L, D] row-major, one
 // (batch*head) slice of L rows per index of n.  q arrives already multiplied
 // by dh^-0.5.  The optional additive mask is fp32 [L, L] and may hold -inf.
 //
-// Every kernel runs 256 threads as a 16 x 16 grid over a 64 x 64 tile of
-// scores: thread (ty, tx) owns query rows ty*4 + i (i < 4) and key columns
-// tx + 16*j (j < 4).  For the [64, D] products it owns rows ty*4 + i and the
-// D columns tx + 16*c (c < ceil(D/16)).  The 16 threads that share a row sit
-// in one half-warp, so row reductions are four xor-shuffles.
+// Two families of kernels share this header:
+//
+// * Scalar fp32 kernels (fp32 inputs, and bf16 at head width 8 or 128): 256
+//   threads as a 16 x 16 grid over a 64 x 64 tile of scores.  Thread (ty, tx)
+//   owns query rows ty*4 + i (i < 4) and key columns tx + 16*j (j < 4); for
+//   the [64, D] products it owns rows ty*4 + i and the D columns tx + 16*c.
+//   The 16 threads that share a row sit in one half-warp, so row reductions
+//   are four xor-shuffles.  They keep fp32 exact to rounding.
+// * Tensor-core kernels (bf16 at head width 16, 32 or 64: every CLIP tower).
+//   At CLIP's lengths attention does ~2 operations per byte, so they are
+//   bound by memory traffic and latency, not by the tensor cores.  What they
+//   do about it: every 64-row tile goes from device memory straight into
+//   shared memory with cp.async (16-byte copies, rows past L zero-filled),
+//   one commit group per tile, so the first product starts as soon as its
+//   tile lands and the later tiles arrive behind it; a head's tiles stay
+//   resident (L <= 256) or cycle through a ring of four; and every operand
+//   fragment comes from a row-major tile through ldmatrix (.trans where the
+//   product needs the tile transposed), so nothing is transposed by scalar
+//   stores.  The products run on mma.sync.m16n8k16 (bf16 in, fp32
+//   accumulate).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -89,10 +105,12 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path (bf16 inputs, head width a multiple of 16).
+// Tensor-core path (bf16 inputs, head width 16, 32 or 64).
 //
-// 128 threads = 4 warps; each warp owns 16 rows of a 64-row tile and runs
-// mma.sync.m16n8k16 (bf16 in, fp32 accumulate).  In a warp, lane = 4*g + t:
+// Each warp owns M = 2 tiles of 16 rows of a product (32 rows) and runs
+// mma.sync.m16n8k16, so every B fragment it loads feeds both row tiles: half
+// the ldmatrix traffic per product, twice the independent products per warp
+// (the layout of FlashAttention-2).  In a warp, lane = 4*g + t:
 //   A fragment (16x16): regs {row g, cols 2t..2t+1}, {row g+8, same},
 //                       {row g, cols 8+2t..}, {row g+8, cols 8+2t..}
 //   B fragment (16x8):  regs {k 2t..2t+1, col g}, {k 8+2t.., col g}
@@ -101,8 +119,11 @@ __device__ __forceinline__ float row_sum(float x) {
 // 16-deep product: P and dS feed the next product from registers.  They are
 // split into a bf16 high part and a bf16 low part (two products), which keeps
 // them at ~16 significant bits: the TPU kernel kept P in fp32.
-// Tiles sit in shared memory as bf16, row-major [64][D+8] or transposed
-// [D][64+8]; the +8 padding makes the fragment loads conflict-free.
+//
+// Tiles sit in shared memory as bf16, row-major [64][D+8].  The +8 padding
+// (16 bytes) puts the eight 16-byte rows that one ldmatrix phase reads in
+// eight different bank groups, so every fragment load is conflict-free, and
+// keeps each row 16-byte aligned for cp.async.
 // ---------------------------------------------------------------------------
 
 // bf16 with a head width of 16, 32 or 64 runs on the tensor cores; fp32 (kept
@@ -111,8 +132,9 @@ template <typename T, int D>
 constexpr bool kUseMma =
     std::is_same<T, __nv_bfloat16>::value && (D == 16 || D == 32 || D == 64);
 
-constexpr int kMmaThreads = 128;
-constexpr int kLdT = kBlock + 8;  // row stride of a transposed [D][64] tile
+constexpr int kWarpTiles = 2;  // 16-row tiles a warp owns: M above
+constexpr int kRing = 4;  // 64-row tiles of one tensor resident at once: a
+                          // whole head for L <= 256, else a ring
 
 template <int D>
 struct MmaTile {
@@ -120,8 +142,97 @@ struct MmaTile {
   static constexpr int kK = D / 16;    // 16-deep steps over the head width
   static constexpr int kN = D / 8;     // 8-wide output tiles over the head width
   static constexpr int kElems = kBlock * kLd;
-  static constexpr int kElemsT = D * kLdT;
 };
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy global -> shared; copies zeros when !valid (then
+// `src` is not read).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most `pending` of this thread's commit groups are in flight
+// (wait_group takes an immediate; a count past 7 waits for all, which is
+// never too little).  The block still needs __syncthreads() to see the other
+// threads' copies.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    case 7: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+  }
+}
+
+// Issues the copies of rows [row0, row0 + 64) of a bf16 [L, D] slice into a
+// row-major tile; rows at or past L arrive as zeros.  All kThreadsN threads
+// of the block take part; the caller commits the group.
+template <int D, int kThreadsN>
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* __restrict__ src, int row0,
+                                                int L) {
+  constexpr int chunks = D / 8;
+  for (int idx = threadIdx.x; idx < kBlock * chunks; idx += kThreadsN) {
+    const int r = idx / chunks;
+    const int c = (idx - r * chunks) * 8;
+    const bool valid = row0 + r < L;
+    cp_async_16(dst + r * MmaTile<D>::kLd + c, valid ? src + (size_t)(row0 + r) * D + c : src,
+                valid);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// A fragment of rows [row0, row0+16) and columns [16kk, 16kk+16) of a
+// row-major tile `s` (stride D+8).
+template <int D>
+__device__ __forceinline__ void frag_a(const __nv_bfloat16* s, int row0, int kk, int lane,
+                                       uint32_t a[4]) {
+  ldsm_x4(a, s + (row0 + (lane & 15)) * MmaTile<D>::kLd + 16 * kk + (lane >> 4) * 8);
+}
+
+// B fragments for a product with the tile transposed (B column n = tile row
+// row0 + n): b[0..1] for columns row0..row0+7, b[2..3] for row0+8..row0+15,
+// depth [16kk, 16kk+16) over the tile's columns.
+template <int D>
+__device__ __forceinline__ void frag_b_rows(const __nv_bfloat16* s, int row0, int kk, int lane,
+                                            uint32_t b[4]) {
+  ldsm_x4(b, s + (row0 + (lane & 7) + ((lane >> 4) << 3)) * MmaTile<D>::kLd + 16 * kk +
+                 ((lane >> 3) & 1) * 8);
+}
+
+// B fragments for a product with the tile itself (B[k][n] = tile[k0 + k][n]),
+// depth k0..k0+15 over the tile's rows: b[0..1] for columns 16c..16c+7,
+// b[2..3] for 16c+8..16c+15.  ldmatrix.trans does the transpose.
+template <int D>
+__device__ __forceinline__ void frag_b_cols(const __nv_bfloat16* s, int k0, int c, int lane,
+                                            uint32_t b[4]) {
+  ldsm_x4_trans(b, s + (k0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * MmaTile<D>::kLd + 16 * c +
+                       (lane >> 4) * 8);
+}
 
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
                                          uint32_t b1) {
@@ -130,10 +241,6 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // (x0, x1) -> bf16x2 high part and bf16x2 low part (x - high), x0 in the low
@@ -146,8 +253,8 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, u
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// A fragments (high, low) of a 16-deep step over 16 keys taken from the C
-// fragments of the two 8-key tiles c[2kk], c[2kk+1].
+// A fragments (high, low) of a 16-deep step taken from the C fragments of
+// the two 8-column tiles c0, c1 that make up its depth.
 __device__ __forceinline__ void acc_to_a(const float c0[4], const float c1[4], uint32_t hi[4],
                                          uint32_t lo[4]) {
   split_bf16x2(c0[0], c0[1], hi[0], lo[0]);
@@ -156,77 +263,60 @@ __device__ __forceinline__ void acc_to_a(const float c0[4], const float c1[4], u
   split_bf16x2(c1[2], c1[3], hi[3], lo[3]);
 }
 
-// A fragment for rows [row0, row0+16) and head columns [16kk, 16kk+16) of a
-// row-major [64][D+8] tile.
-template <int D>
-__device__ __forceinline__ void load_a(const __nv_bfloat16* s, int row0, int kk, int g, int t,
-                                       uint32_t a[4]) {
-  constexpr int ld = MmaTile<D>::kLd;
-  const __nv_bfloat16* p = s + (row0 + g) * ld + kk * 16 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// Copies rows [row0, row0+64) of a bf16 [L, D] slice into shared memory,
-// row-major into `dst` and/or transposed into `dstT`; rows at or past L are
-// zero.  16-byte loads (the wrapper checks the alignment).
-template <int D>
-__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst, __nv_bfloat16* dstT,
-                                               const __nv_bfloat16* __restrict__ src, int row0,
-                                               int L) {
-  constexpr int chunks = D / 8;
-  for (int idx = threadIdx.x; idx < kBlock * chunks; idx += kMmaThreads) {
-    const int r = idx / chunks;
-    const int c = (idx - r * chunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < L) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    if (dst != nullptr) *reinterpret_cast<uint4*>(dst + r * MmaTile<D>::kLd + c) = val;
-    if (dstT != nullptr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+// acc[m][nt] (nt < D/8) += A_m x tile[k0..k0+16, :] for the M row tiles of
+// a warp, where A_m = hi[m] + lo[m] is a 16-deep fragment split in two bf16
+// parts: each B fragment feeds 4 M products.
+template <int D, int M>
+__device__ __forceinline__ void mma_split_tile(const uint32_t hi[][4], const uint32_t lo[][4],
+                                               const __nv_bfloat16* s, int k0, int lane,
+                                               float acc[][MmaTile<D>::kN][4]) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) dstT[(c + i) * kLdT + r] = e[i];
+  for (int c = 0; c < D / 16; ++c) {
+    uint32_t b[4];
+    frag_b_cols<D>(s, k0, c, lane, b);
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      mma_bf16(acc[m][2 * c], hi[m], b[0], b[1]);
+      mma_bf16(acc[m][2 * c + 1], hi[m], b[2], b[3]);
+      mma_bf16(acc[m][2 * c], lo[m], b[0], b[1]);
+      mma_bf16(acc[m][2 * c + 1], lo[m], b[2], b[3]);
     }
   }
 }
 
-// acc[j] (j < 8: keys 8j..8j+7 of the tile) = A rows x B, where the B
-// operand's column n is row n of a row-major [64][D+8] tile `s` (so the
-// product is A times the tile transposed).
-template <int D>
-__device__ __forceinline__ void mma_rows_nt(const uint32_t a[][4], const __nv_bfloat16* s, int g,
-                                            int t, float acc[8][4]) {
-  constexpr int ld = MmaTile<D>::kLd;
+// acc[m][2c..2c+1] = A_m (16 rows, all D columns, as kK fragments) x tile
+// rows [row0, row0+16) transposed -- a 16 x 16 block of scores -- for the M
+// row tiles of a warp: each B fragment feeds 2 M products.
+template <int D, int M, int NT>
+__device__ __forceinline__ void mma_scores(const uint32_t a[][MmaTile<D>::kK][4],
+                                           const __nv_bfloat16* s, int row0, int c, int lane,
+                                           float acc[][NT][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int m = 0; m < M; ++m)
 #pragma unroll
-    for (int kk = 0; kk < MmaTile<D>::kK; ++kk) {
-      const __nv_bfloat16* p = s + (8 * j + g) * ld + kk * 16 + 2 * t;
-      mma_bf16(acc[j], a[kk], ld32(p), ld32(p + 8));
+    for (int i = 2 * c; i < 2 * c + 2; ++i)
+      acc[m][i][0] = acc[m][i][1] = acc[m][i][2] = acc[m][i][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < MmaTile<D>::kK; ++kk) {
+    uint32_t b[4];
+    frag_b_rows<D>(s, row0, kk, lane, b);
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      mma_bf16(acc[m][2 * c], a[m][kk], b[0], b[1]);
+      mma_bf16(acc[m][2 * c + 1], a[m][kk], b[2], b[3]);
     }
   }
 }
 
-// acc[nt] (nt < D/8) += A(16 rows x 64 keys, from c[8]) x B, where B is a
-// transposed [D][64+8] tile `sT` (column n of B = row n of sT), with A split
-// into high and low bf16 parts.
-template <int D>
-__device__ __forceinline__ void mma_acc_tn(const float c[8][4], const __nv_bfloat16* sT, int g,
-                                           int t, float acc[][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t hi[4], lo[4];
-    acc_to_a(c[2 * kk], c[2 * kk + 1], hi, lo);
-#pragma unroll
-    for (int nt = 0; nt < MmaTile<D>::kN; ++nt) {
-      const __nv_bfloat16* p = sT + (8 * nt + g) * kLdT + kk * 16 + 2 * t;
-      const uint32_t b0 = ld32(p), b1 = ld32(p + 8);
-      mma_bf16(acc[nt], hi, b0, b1);
-      mma_bf16(acc[nt], lo, b0, b1);
-    }
-  }
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit (relative error ~2^-22, far inside bf16
+// rounding); the softmax exponentials of the tensor-core kernels are
+// exp(x) = 2^(x log2 e) with the scale folded into one FMA.  -inf gives 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -256,6 +346,30 @@ __device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* dst, const float 
           __floats2bfloat162_rn(acc[nt][2 * half] * sc, acc[nt][2 * half + 1] * sc);
     }
   }
+}
+
+// Fills out[0..5] for a kernel about to be launched with `blocks` blocks of
+// `threads` threads and `smem` bytes of dynamic shared memory: blocks,
+// threads, shared bytes per block (dynamic + static), resident blocks per
+// SM, registers per thread, local (spilled) bytes per thread.
+template <typename Kernel>
+cudaError_t kernel_info(Kernel kernel, int blocks, int threads, size_t smem, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = blocks;
+  out[1] = threads;
+  out[2] = (int)(smem + attr.sharedSizeBytes);
+  out[3] = per_sm;
+  out[4] = attr.numRegs;
+  out[5] = (int)attr.localSizeBytes;
+  return cudaSuccess;
 }
 
 }  // namespace ffm

@@ -27,11 +27,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
-# argument types of each library's entry point (pointers and the stream as
-# c_void_p: ctypes would otherwise pass them as 32-bit ints)
+# argument types of each library's entry points, in the order of their C
+# prototypes (pointers and the stream as c_void_p: ctypes would otherwise pass
+# them as 32-bit ints); every entry point returns a CUDA error code as int
 SIGNATURES = {
-    "attention_fwd": ("ffm_attention_fwd", [_VOID] * 6 + [_INT] * 4 + [_VOID]),
-    "attention_bwd": ("ffm_attention_bwd", [_VOID] * 11 + [_INT] * 4 + [_VOID]),
+    "attention_fwd": {
+        "ffm_attention_fwd": [_VOID] * 6 + [_INT] * 4 + [_VOID],
+        "ffm_attention_fwd_info": [_INT] * 4 + [_VOID],
+    },
+    "attention_bwd": {
+        "ffm_attention_bwd": [_VOID] * 11 + [_INT] * 4 + [_VOID],
+        "ffm_attention_bwd_info": [_INT] * 4 + [_VOID],
+    },
 }
 
 
@@ -83,13 +90,14 @@ def build(names=SOURCES) -> dict:
 
 
 @functools.cache
-def load(name: str):
-    """The entry point of ``csrc/<name>.cu`` as a ctypes function returning the
-    launch's CUDA error code; builds the library first if needed."""
+def load(name: str, symbol: str = ""):
+    """Entry point ``symbol`` (by default ``ffm_<name>``) of ``csrc/<name>.cu``
+    as a ctypes function returning a CUDA error code; builds the library
+    first if needed."""
     build((name,))
     lib = ctypes.CDLL(str(library_path(name)))
-    symbol, argtypes = SIGNATURES[name]
+    symbol = symbol or f"ffm_{name}"
     fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
+    fn.argtypes = SIGNATURES[name][symbol]
     fn.restype = ctypes.c_int
     return fn

@@ -9,12 +9,16 @@ Pallas TPU kernels there:
 What bounds them on the H100 and how their design answers it is written at
 the top of each source.  In short: at CLIP's lengths (197 / <= 77 tokens,
 head width 64) attention is memory-bound, so the kernels keep the [L, L]
-scores in shared memory and move each [L, dh] tensor once; the forward saves
-the per-row log-sum-exp so the backward rebuilds P without a second softmax
-pass, and the backward splits dK/dV and dQ into two passes instead of using
-atomics.  bf16 at head width 16/32/64 runs on the tensor cores; fp32 and the
-other widths on the fp32 CUDA cores.  Unlike the TPU kernel, L is not padded
-to 128: the ragged tail is masked inside the kernels.
+scores on chip and move each [L, dh] tensor as few times as they can; the
+forward saves the per-row log-sum-exp so the backward rebuilds P without a
+second softmax pass.  bf16 at head width 16/32/64 (every CLIP tower) runs on
+the tensor cores: the forward is one block per 128 query rows with the
+head's K and V resident in shared memory, the backward one block per
+(batch*head) that holds Q, K, V, dO and O, computes rowsum(dO*O) itself, and
+produces dK/dV and then dQ in one launch without atomics.  Tiles arrive by
+asynchronous copies and feed the tensor cores through ``ldmatrix``.  fp32
+and the other widths run scalar fp32 kernels.  Unlike the TPU kernel, L is
+not padded to 128: the ragged tail is masked inside the kernels.
 
 :func:`attention_fwd` / :func:`attention_bwd` launch the kernels on CUDA
 tensors and count their launches.  :func:`reference_attention` /
@@ -27,6 +31,7 @@ never falling back from one to the other.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -106,7 +111,7 @@ def attention_bwd(q, k, v, o, lse, do, mask=None):
     if lse.shape != (n, length) or lse.dtype != torch.float32 or lse.device != q.device \
             or not lse.is_contiguous():
         raise ValueError("lse must be the forward's contiguous float32 [n, L] output")
-    delta = torch.empty_like(lse)
+    delta = torch.empty_like(lse)  # scratch of the scalar kernels
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     fn = _build.load("attention_bwd")
     err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(o), _ptr(do), _ptr(lse),
@@ -118,6 +123,19 @@ def attention_bwd(q, k, v, o, lse, do, mask=None):
 
 
 attention_bwd.launches = 0
+
+
+def launch_info(kind: str, n: int, length: int, dh: int) -> dict:
+    """How the tensor-core kernel ``kind`` ("fwd" or "bwd") launches for bf16
+    [n, length, dh] (dh in 16, 32, 64), from the CUDA runtime on the current
+    card: blocks, threads per block, shared bytes per block, resident blocks
+    per SM, registers and local (spilled) bytes per thread."""
+    out = (ctypes.c_int * 6)()
+    fn = _build.load(f"attention_{kind}", f"ffm_attention_{kind}_info")
+    _raise_on_error(fn(n, length, dh, _DTYPE_CODES[torch.bfloat16], ctypes.addressof(out)),
+                    f"attention {kind} info")
+    keys = ("blocks", "threads", "smem_bytes", "blocks_per_sm", "registers", "local_bytes")
+    return dict(zip(keys, out))
 
 
 def reference_attention(q, k, v, mask=None):
