@@ -29,8 +29,23 @@ Phases, each printing one JSON line:
    counts must equal what the layer structure implies.  One more training
    step then runs under torch.profiler (``main_path_profile``): kernel time
    by class and the device's idle share of a step.
+5. ``cli_path``: the port's CLI, ``fairfedmed_tpu_torch.federated_main.main``,
+   with the flags of ``scripts/fairfedlora_fairfedmed.sh`` read from the
+   script (the real config files, ViT-B/16 at full width and depth, batch
+   32 / 100), except ``--root`` and ``--output-dir`` (under ``build/``),
+   ``--round 2`` and no ``--parallel_clients``.  It reads a FairFedMed
+   fixture written here (3 sites x 64 train / 100 test NPZs of 224x224
+   uint8 SLO fundus, half of them deflate-compressed) through the YAML
+   configs, ``DataManager``, the dataset and the native NPZ reader.  Round 0
+   trains all 3 clients, round 1 the 2 that ``np.random.choice`` draws, and
+   every round evaluates all 3.  Launch counts must match the batches of the
+   clients the log shows were trained; losses, accuracies and AUCs must be
+   finite, and the final per-client weights must be written.  Beside them:
+   time per round, step times, the NPZ decoder in use, the host's data time
+   per batch, peak memory, and the time of the batch's host-to-device copy.
 
-Then the ``kernels`` line (with each tensor-core kernel's registers and
+Then the ``kernels`` line (``launches`` from main_path and
+``launches_cli_path`` from cli_path; with each tensor-core kernel's registers and
 spills from ptxas, its shared memory and waves from the CUDA runtime, and
 its bound share from the cold time), the ``nvidia-smi`` name/power line,
 and last
@@ -41,10 +56,13 @@ not 0 and the last line is not printed.
 from __future__ import annotations
 
 import copy
+import csv
 import json
 import math
 import os
 import re
+import shlex
+import shutil
 import statistics
 import subprocess
 import sys
@@ -71,7 +89,10 @@ CLASSNAMES = ["NOT Glaucoma", "Glaucoma"]
 # another order; bf16 outputs rounded once (2^-8) plus the backward's
 # delta taken from the rounded output
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_output")
+REPO = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(REPO, "build", "chip_smoke_output")
+SCRIPT = os.path.join(REPO, "scripts", "fairfedlora_fairfedmed.sh")
+CLI_SITES, CLI_TRAIN, CLI_TEST = 3, 64, 100
 
 
 def emit(obj):
@@ -468,6 +489,221 @@ def main_path(dev):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 5: the CLI
+# --------------------------------------------------------------------------- #
+
+def script_flags(path=SCRIPT) -> list:
+    """The ``federated_main.py`` flags of a launcher script, with its shell
+    variables substituted (``${VAR:-default}`` takes the default) and the
+    ``$(...)``-valued ones (the parallel-clients switch) dropped."""
+    with open(path) as f:
+        text = f.read()
+    env = {}
+
+    def subst(token):
+        return re.sub(r"\$\{(\w+)\}", lambda v: env[v.group(1)], token)
+
+    for name, value in re.findall(r"^(\w+)=(.*)$", text, re.M):
+        if value.startswith("$("):
+            continue
+        m = re.fullmatch(r"\$\{\w+:-(.*)\}", value)
+        env[name] = subst(shlex.split(m.group(1) if m else value)[0])
+    command = re.search(r"^python federated_main\.py((?:.*\\\n)*.*)$", text, re.M).group(1)
+    out = []
+    for token in shlex.split(command.replace("\\\n", " ")):
+        var = re.fullmatch(r"\$\{(\w+)\}", token)
+        if not (var and var.group(1) not in env):
+            out.append(subst(token))
+    return out
+
+
+def write_fairfedmed_fixture(root, size=224, seed=3):
+    """The FairFedMed layout of tests/fixtures.py:13-45, written with numpy
+    and csv: ``root/fairfedmed/all/data_*.npz`` (slo_fundus uint8
+    [size, size], glaucoma, the five attributes; every second file
+    deflate-compressed) and ``meta_site{k}_{attr}_{split}.csv``.  Labels and
+    attributes are laid out so every demographic group holds both classes,
+    then shuffled."""
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, "fairfedmed")
+    all_dir = os.path.join(base, "all")
+    os.makedirs(all_dir, exist_ok=True)
+    counter, nbytes = 0, 0
+    for site in range(1, CLI_SITES + 1):
+        for split, n in (("train", CLI_TRAIN), ("test", CLI_TEST)):
+            i, order = np.arange(n), rng.permutation(n)
+            labels = (i % 2)[order]
+            attrs = {a: ((i // 2) % GROUPS[a])[order] for a in ATTRIBUTES}
+            fnames = []
+            for j in range(n):
+                fname = f"data_{counter:05d}.npz"
+                path = os.path.join(all_dir, fname)
+                save = np.savez_compressed if counter % 2 else np.savez
+                save(path, slo_fundus=rng.integers(0, 256, (size, size), dtype=np.uint8),
+                     glaucoma=np.asarray(labels[j]),
+                     **{a: np.asarray(attrs[a][j]) for a in attrs})
+                nbytes += os.path.getsize(path)
+                fnames.append(fname)
+                counter += 1
+            for attr in ATTRIBUTES:
+                with open(os.path.join(base, f"meta_site{site}_{attr}_{split}.csv"), "w",
+                          newline="") as f:
+                    w = csv.writer(f)
+                    w.writerow(["filename"])
+                    w.writerows([fn] for fn in fnames)
+    return {"files": counter, "bytes": nbytes}
+
+
+def time_h2d(batch_img, dev, iters=10):
+    """Host-to-device copy of one training batch's images as
+    ``prefetch_to_device`` makes it (pin, then a non-blocking copy), the
+    device copy timed with CUDA events; a pageable copy beside it."""
+    host = torch.as_tensor(batch_img)
+    pin_ms, pinned_ms, pageable_ms = [], [], []
+    for _ in range(iters):
+        t = time.perf_counter()
+        pinned = host.pin_memory()
+        pin_ms.append((time.perf_counter() - t) * 1e3)
+        for src, out in ((pinned, pinned_ms), (host, pageable_ms)):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            src.to(dev, non_blocking=True)
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+    nbytes = host.numel() * host.element_size()
+    return {"h2d_bytes": nbytes, "h2d_dtype": str(host.dtype).replace("torch.", ""),
+            "h2d_pinned_ms_median": statistics.median(pinned_ms),
+            "h2d_pageable_ms_median": statistics.median(pageable_ms),
+            "pin_memory_host_ms_median": statistics.median(pin_ms),
+            "h2d_pinned_gb_per_s": nbytes / statistics.median(pinned_ms) / 1e6}
+
+
+def cli_path(dev):
+    from fairfedmed_tpu_torch import federated_main as fm
+    from fairfedmed_tpu_torch import native
+
+    data_root = os.path.join(REPO, "build", "chip_smoke_data")
+    out_dir = os.path.join(REPO, "build", "chip_smoke_cli")
+    for d in (data_root, out_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    fixture = write_fairfedmed_fixture(data_root)
+    fixture["write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoder = native.decoder()  # builds the native reader now, not inside a step
+    decoder_build_s = time.perf_counter() - t0
+
+    argv = script_flags()
+    for flag, value in (("--root", data_root), ("--output-dir", out_dir), ("--round", "2"),
+                        ("--config-file", None), ("--dataset-config-file", None)):
+        i = argv.index(flag)
+        argv[i + 1] = value or os.path.join(REPO, argv[i + 1])  # config paths from the repo
+    args = fm.build_arg_parser().parse_args(argv)
+
+    steps, epochs, holder = [], [], {}
+    build_trainer = fm.build_trainer
+
+    def recording_build(cfg, dm=None, device=None):
+        trainer = build_trainer(cfg, dm, device=device)
+        holder["trainer"] = trainer
+        forward_backward, run_epoch = trainer.forward_backward, trainer.run_epoch
+
+        def timed_step(b):  # forward_backward ends in a host fetch: the clock is honest
+            t = time.perf_counter()
+            out = forward_backward(b)
+            steps.append({"loss": out["loss"], "ms": (time.perf_counter() - t) * 1e3})
+            return out
+
+        def recorded_epoch(idx, global_epoch):
+            run_epoch(idx, global_epoch)
+            epochs.append({"round": global_epoch, "client": idx,
+                           "data_ms_per_batch": trainer.data_time.avg * 1e3,
+                           "batch_ms": trainer.batch_time.avg * 1e3,
+                           "batches": trainer.data_time.count})
+
+        trainer.forward_backward, trainer.run_epoch = timed_step, recorded_epoch
+        return trainer
+
+    fm.build_trainer = recording_build
+    console_path = os.path.join(REPO, "build", "chip_smoke_cli_console.txt")
+    saved_stdout = sys.stdout
+    torch.cuda.reset_peak_memory_stats()
+    A.attention_fwd.launches = 0
+    A.attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with open(console_path, "w") as console:
+            sys.stdout = console  # the CLI's log tee writes here and to log.txt
+            try:
+                result = fm.main(args)
+            finally:
+                tee, sys.stdout = sys.stdout, saved_stdout
+                if tee is not console:
+                    tee.close()  # while its console is still open
+    except BaseException:
+        with open(console_path) as f:
+            print(f.read()[-6000:], file=sys.stderr)
+        raise
+    finally:
+        fm.build_trainer = build_trainer
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {"attention_fwd": A.attention_fwd.launches,
+                "attention_bwd": A.attention_bwd.launches}
+
+    trainer = holder["trainer"]
+    with open(os.path.join(out_dir, "log.txt")) as f:
+        log = f.read()
+    trained = {}  # round -> clients, from "Save checkpoint to .../epoch{r}_client{i}.npz"
+    for r, c in re.findall(r"Save checkpoint to .*epoch(\d+)_client(\d+)\.npz", log):
+        trained.setdefault(int(r), []).append(int(c))
+    n_train = sum(len(trainer.fed_train_loader_x_dict[c]) for cs in trained.values() for c in cs)
+    n_eval = len(result["acc"]) * sum(len(trainer.fed_test_loader_x_dict[c])
+                                      for c in range(CLI_SITES))
+    clip = trainer.bundle.clip_cfg
+    v, t = clip.vision_layers, clip.transformer_layers
+    # every batch (train or eval) runs each vision and text block once; the
+    # backward skips vision block 0, whose input carries no gradient
+    expected = {"attention_fwd": (n_train + n_eval) * (v + t),
+                "attention_bwd": n_train * (v - 1 + t)}
+    finals = {}
+    for idx in range(CLI_SITES):
+        with np.load(os.path.join(out_dir, f"global_client{idx}_final.npz")) as z:
+            finals[idx] = len(z.files) > 0 and all(np.isfinite(z[k]).all() for k in z.files)
+    cum = result["time"]
+    res = {"phase": "cli_path", "entry": "fairfedmed_tpu_torch.federated_main.main",
+           "argv": argv, "model": trainer.cfg.MODEL.BACKBONE.NAME,
+           "width": [clip.vision_width, clip.transformer_width], "layers": [v, t],
+           "prec": trainer.cfg.TRAINER.GLP_OT.PREC, "device": str(trainer.device),
+           "fixture": fixture, "decoder": decoder, "decoder_build_s": decoder_build_s,
+           "main_s": main_s, "round_s": [cum[0]] + [b - a for a, b in zip(cum, cum[1:])],
+           "trained_clients": trained, "train_batches": n_train, "eval_batches": n_eval,
+           "steps": steps, "step_ms_median": statistics.median(s["ms"] for s in steps),
+           "epochs": epochs,
+           "data_ms_per_batch_median": statistics.median(e["data_ms_per_batch"] for e in epochs),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "acc": result["acc"], "auc": result["auc"], "final_npz_finite": finals,
+           "launches": launches, "expected_launches": expected}
+    if decoder != "native":
+        res["decoder_build_log"] = native.build_log()[-2000:]
+    res.update(time_h2d(next(iter(trainer.fed_train_loader_x_dict[0]))["img"], dev))
+    emit(res)
+    if trained.get(0) != list(range(CLI_SITES)) or len(trained.get(1, [])) != int(0.8 * CLI_SITES):
+        raise AssertionError(f"unexpected clients trained: {trained}")
+    if not steps or not all(np.isfinite(s["loss"]) for s in steps):
+        raise AssertionError(f"non-finite or missing losses: {steps}")
+    if len(result["acc"]) != 2 or not np.isfinite(result["acc"] + result["auc"]).all():
+        raise AssertionError(f"non-finite or missing metrics: {result}")
+    if not all(finals.values()):
+        raise AssertionError(f"final weights missing or not finite: {finals}")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches} != expected {expected}")
+    return launches
+
+
 def _kernel_class(name: str) -> str:
     if "attention_" in name:
         return "attention (port kernels)"
@@ -502,7 +738,7 @@ def profile_step(trainer, batch, step_ms):
             "top_kernels_ms": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]}
 
 
-def kernels_line(rows, launches):
+def kernels_line(rows, launches, cli_launches):
     """The two kernels at the vision training shape in bf16, the shape and type
     the main path spends most of its attention time on, with the tensor-core
     kernels' resources: registers and spills from ptxas, shared memory and
@@ -522,7 +758,8 @@ def kernels_line(rows, launches):
         out.append(dict(
             ptxas_kernel(log, f"{name}_mma_kernelILi{dh}E"), name=name, route="cuda",
             source=f"fairfedmed_tpu_torch/csrc/{name}.cu", replaces=tpu_line,
-            launches=launches[name], max_abs_err=row[f"{kind}_max_abs_err"],
+            launches=launches[name], launches_cli_path=cli_launches[name],
+            max_abs_err=row[f"{kind}_max_abs_err"],
             ms=row[f"kernel_{kind}_ms"], ms_cold=row[f"kernel_{kind}_ms_cold"],
             ms_events=row[f"kernel_{kind}_ms_events"], host_ms=row[f"kernel_{kind}_host_ms"],
             plain_ms=row[f"plain_{kind}_ms"], bound_ms=row[f"{kind}_bound_ms"],
@@ -555,7 +792,8 @@ def main():
     emit({"phase": "kernel_checks", "rows": rows})
     emit(small_reference(dev))
     launches = main_path(dev)
-    emit(kernels_line(rows, launches))
+    cli_launches = cli_path(dev)
+    emit(kernels_line(rows, launches, cli_launches))
     print(nvidia_smi_line())
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

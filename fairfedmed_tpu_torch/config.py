@@ -1,8 +1,8 @@
 """Hierarchical configuration system (yacs-compatible subset).
 
-The port's own copy of ``fairfedmed_tpu/config.py``.  PyYAML is imported only
-where YAML is read or written, so building a config in code needs no YAML
-package.
+The port's own copy of ``fairfedmed_tpu/config.py``.  YAML is read and
+written by the port's own small reader (``utils/yaml_lite.py``), so no YAML
+package is needed.
 
 The reference threads a frozen ``yacs.config.CfgNode`` through every layer
 (``Dassl/dassl/config/defaults.py:7-309``, ``federated_main.py:60-153``).  yacs is
@@ -19,6 +19,8 @@ from __future__ import annotations
 import copy
 import io
 from typing import Any
+
+from .utils import yaml_lite
 
 _FROZEN = "__cfgnode_frozen__"
 
@@ -77,10 +79,8 @@ class CfgNode(dict):
         _merge(other, self)
 
     def merge_from_file(self, filename: str) -> None:
-        import yaml
-
         with open(filename, "r") as f:
-            loaded = yaml.safe_load(f)
+            loaded = yaml_lite.loads(f.read(), filename)
         if loaded is None:
             return
         _merge(CfgNode(loaded), self)
@@ -101,9 +101,7 @@ class CfgNode(dict):
 
     # -- io ------------------------------------------------------------------
     def dump(self) -> str:
-        import yaml
-
-        return yaml.safe_dump(_to_plain(self), sort_keys=True)
+        return yaml_lite.dump(_to_plain(self))
 
     def __str__(self) -> str:  # yacs-like indented repr
         s = io.StringIO()
@@ -142,9 +140,7 @@ def _coerce(value: Any, old: Any, key: str) -> Any:
         try:
             value = ast.literal_eval(value)
         except (ValueError, SyntaxError):
-            import yaml
-
-            parsed = yaml.safe_load(value)
+            parsed = yaml_lite.parse_value(value, f"value of {key}")
             if not isinstance(parsed, str) or not isinstance(old, str):
                 value = parsed
     if old is None or value is None:

@@ -11,6 +11,7 @@ def resolve_device(device=None) -> torch.device:
     and no GPU is present."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' to run the "
-                           "port on the CPU (its plain PyTorch paths)")
+        raise RuntimeError("no CUDA device is available; pass device='cpu' (to the CLI: "
+                           "the override USE_CUDA False) to run the port on the CPU (its "
+                           "plain PyTorch paths)")
     return dev

@@ -1,21 +1,22 @@
 """Shared CLIP model assembly and losses for the method trainers.
 
-Port of ``fairfedmed_tpu/train/clip_common.py``.  ``load_clip_bundle`` builds
-the frozen backbone from a preset with a seeded random init; loading an
-OpenAI checkpoint is not ported yet and raises when one is present.  Tiny
-``test-vit`` presets keep the tests fast.
+Port of ``fairfedmed_tpu/train/clip_common.py``.  ``load_clip_bundle`` plays
+the role of load_clip_to_cpu + clip.build_model (trainers/GLP_OT_SVLoRA.py:
+23-43, clip/model.py:633-670): an OpenAI ViT checkpoint found under
+``DATASET.ROOT`` is converted and loaded; without one the backbone is a
+seeded random init.  Tiny ``test-vit`` presets keep the tests fast.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import torch
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
 from ..core.precision import Policy, policy_from_prec
+from ..models import converter
 from ..models.clip_model import PRESETS, CLIPConfig, init_clip_params
 
 TEST_PRESETS = {
@@ -41,30 +42,34 @@ class CLIPBundle:
     backbone_type: str = "vit"
 
 
-def _checkpoint_candidates(name: str, root: str):
-    fname = name.replace("/", "-") + ".pt"
-    return [os.path.join(root, fname), os.path.join(root, "clip", fname)] if root else []
-
-
 def load_clip_bundle(cfg, prec: str, device=None) -> CLIPBundle:
     """The frozen CLIP backbone named by ``cfg.MODEL.BACKBONE.NAME`` on
-    ``device`` (default ``cuda``), randomly initialised from ``cfg.SEED``
-    (the same weights on every device)."""
+    ``device`` (default ``cuda``): the OpenAI checkpoint when one is found
+    under ``cfg.DATASET.ROOT`` (and ``MODEL.BACKBONE.PRETRAINED``), else
+    randomly initialised from ``cfg.SEED`` (the same weights on every
+    device)."""
     device = resolve_device(device)
     name = cfg.MODEL.BACKBONE.NAME
     policy = policy_from_prec(prec)
     if name.startswith("RN") or name == "test-rn":
-        raise NotImplementedError(f"ResNet CLIP backbones ({name}) are not ported yet")
+        raise NotImplementedError(f"ResNet CLIP backbones ({name}) are not ported yet "
+                                  "(ROADMAP M13)")
     if name in TEST_PRESETS:
         clip_cfg = TEST_PRESETS[name]
     else:
+        ckpt = converter.find_checkpoint(name, cfg.DATASET.ROOT) \
+            if cfg.MODEL.BACKBONE.PRETRAINED else None
+        if ckpt is not None:
+            print(f"Loading CLIP (backbone: {name}) from {ckpt}")
+            tree, clip_cfg = converter.convert_vit_clip(converter.load_torch_state_dict(ckpt))
+            params = converter.params_from_numpy(tree, device, policy.param_dtype)
+            return CLIPBundle(params=params, clip_cfg=clip_cfg, policy=policy, pretrained=True)
         clip_cfg = PRESETS.get(name)
         if clip_cfg is None:
             raise ValueError(f"Unknown CLIP backbone: {name}")
-        found = [c for c in _checkpoint_candidates(name, cfg.DATASET.ROOT) if os.path.exists(c)]
-        if cfg.MODEL.BACKBONE.PRETRAINED and found:
-            raise NotImplementedError(f"loading the CLIP checkpoint {found[0]} is not ported yet")
-        print(f"WARNING: no checkpoint loaded for {name}; using random init")
+        print(f"WARNING: no checkpoint found for {name}; using random init "
+              f"(place the OpenAI {converter.checkpoint_name(name)} under DATASET.ROOT "
+              "to load pretrained weights)")
     # drawn on the CPU: the same seed gives the same weights on every device
     gen = torch.Generator().manual_seed(cfg.SEED if cfg.SEED >= 0 else 0)
     params = init_clip_params(gen, clip_cfg, dtype=policy.param_dtype, device=device)

@@ -7,11 +7,13 @@ Model state is a frozen tree (the CLIP backbone) and a trainable tree
 dotted-path numpy dicts with the reference's key names, so aggregation
 predicates such as ``'lora_S' in key`` carry over.
 
-In this port the caller hands the trainer its data: ``dm`` carries
+The trainer builds its ``DataManager`` from the config, as the JAX package's
+does; a caller may hand it ``dm`` instead: any object with
 ``fed_train_loader_x_dict`` / ``fed_test_loader_x_dict`` (per-client
-iterables of the batch dicts the JAX package's ``ClientLoader`` yields),
-``num_classes``, ``lab2cname`` and ``dataset.classnames``.  The printed lines
-match the JAX package's byte for byte (``tools/parse_test_res.py`` reads them).
+iterables of the batch dicts ``ClientLoader`` yields), ``num_classes``,
+``lab2cname`` and ``dataset.classnames``.  Training batches reach the device
+through ``prefetch_to_device``.  The printed lines match the JAX package's
+byte for byte (``tools/parse_test_res.py`` reads them).
 """
 
 from __future__ import annotations
@@ -24,15 +26,18 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..core.device import resolve_device
+from ..data.manager import DataManager, prefetch_to_device
 from ..evaluation.evaluator import build_evaluator
 from ..utils.meters import AverageMeter, MetricMeter
 from ..utils.registry import TRAINER_REGISTRY
+from ..utils.tools import mkdir_if_missing
 from .optim import LRSchedule, set_learning_rate
 
 
-def build_trainer(cfg, dm, device=None):
+def build_trainer(cfg, dm=None, device=None):
     """The trainer named by ``cfg.TRAINER.NAME``, on ``device`` (default
-    ``cuda``; ``"cpu"`` runs the plain PyTorch paths)."""
+    ``cuda``; ``"cpu"`` runs the plain PyTorch paths), over ``dm`` (default:
+    ``DataManager(cfg)``)."""
     from . import trainers  # noqa: F401  (registers the trainers)
 
     return TRAINER_REGISTRY.get(cfg.TRAINER.NAME)(cfg, dm, device=device)
@@ -42,9 +47,30 @@ class TrainerBase:
     """Generic lifecycle over one client's local epochs."""
 
     def __init__(self):
+        self._writer = None
         self.epoch = 0
         self.start_epoch = 0
         self.max_epoch = 0
+
+    # -- tensorboard -------------------------------------------------------
+    def init_writer(self, log_dir):
+        if self._writer is None:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError as e:  # tensorboard is optional
+                print(f"TensorBoard unavailable ({e}); scalars will not be written")
+                return
+            mkdir_if_missing(log_dir)
+            self._writer = SummaryWriter(log_dir=log_dir)
+            print(f"Initialize tensorboard (log_dir={log_dir})")
+
+    def close_writer(self):
+        if self._writer is not None:
+            self._writer.close()
+
+    def write_scalar(self, tag, value, step):
+        if self._writer is not None:
+            self._writer.add_scalar(tag, value, step)
 
     def train(self, idx=-1, global_epoch=0, is_fed=False, is_last_client=False):
         """Run MAX_EPOCH local epochs for client ``idx`` (TrainerBase.train,
@@ -91,7 +117,7 @@ class SimpleTrainer(TrainerBase):
     """Model, evaluator and the federated train/test lifecycle over the
     caller's per-client loaders (SimpleTrainer, trainer.py:345-589)."""
 
-    def __init__(self, cfg, dm, device=None):
+    def __init__(self, cfg, dm=None, device=None):
         super().__init__()
         self.check_cfg(cfg)
         self.cfg = cfg
@@ -100,7 +126,7 @@ class SimpleTrainer(TrainerBase):
         self.max_epoch = cfg.OPTIM.MAX_EPOCH
         self.output_dir = cfg.OUTPUT_DIR
 
-        self.dm = dm
+        self.dm = dm = DataManager(cfg) if dm is None else dm
         self.fed_train_loader_x_dict = dm.fed_train_loader_x_dict
         self.fed_test_loader_x_dict = dm.fed_test_loader_x_dict
         self.num_classes = dm.num_classes
@@ -117,6 +143,17 @@ class SimpleTrainer(TrainerBase):
 
     def build_model(self):
         raise NotImplementedError
+
+    # -- fed lifecycle -----------------------------------------------------
+    def fed_before_train(self):
+        self.init_writer(os.path.join(self.output_dir, "tensorboard"))
+        self.time_start = time.time()
+
+    def fed_after_train(self):
+        print("Finish training")
+        elapsed = round(time.time() - self.time_start)
+        print(f"Elapsed: {datetime.timedelta(seconds=elapsed)}")
+        self.close_writer()
 
     def after_epoch(self, idx, global_epoch, is_last_client):
         """Per-client grad-only checkpoint at a local-epoch CHECKPOINT_FREQ
@@ -142,7 +179,11 @@ class SimpleTrainer(TrainerBase):
             output = self.model_inference(inp, tgt_attr).float().cpu().numpy()[:n]
             attrs_h = None if attrs is None else np.asarray(attrs)[:n].T  # [A, B]
             self.evaluator.process(output, np.asarray(label)[:n], attrs_h)
-        return list(self.evaluator.evaluate().values())
+        results = self.evaluator.evaluate()
+        for k, v in results.items():
+            if np.isscalar(v):
+                self.write_scalar(f"test/{k}/{idx}", v, current_epoch)
+        return list(results.values())
 
     def model_inference(self, inp, attr=None):
         raise NotImplementedError
@@ -153,20 +194,23 @@ class SimpleTrainer(TrainerBase):
 
 class TrainerX(SimpleTrainer):
     """Supervised epoch loop over one client's loader
-    (TrainerX.run_epoch, trainer.py:685-741)."""
+    (TrainerX.run_epoch, trainer.py:685-741).  The epoch's meters stay on
+    the trainer (``batch_time``, ``data_time``: host time per batch and the
+    part of it spent waiting for the batch)."""
 
     def run_epoch(self, idx, global_epoch):
         self.set_model_mode("train")
         losses = MetricMeter()
-        batch_time = AverageMeter()
-        data_time = AverageMeter()
+        self.batch_time = batch_time = AverageMeter()
+        self.data_time = data_time = AverageMeter()
 
         loader = self.fed_train_loader_x_dict[idx]
         self.num_batches = len(loader)
         lr_steps_before = self._lr_steps
         n_seen = 0
         end = time.time()
-        for self.batch_idx, batch in enumerate(loader):
+        # keep 2 batches on the device while the host decodes ahead
+        for self.batch_idx, batch in enumerate(prefetch_to_device(loader, 2, self.device)):
             n_seen += 1
             data_time.update(time.time() - end)
             loss_summary = self.forward_backward(batch)

@@ -200,20 +200,21 @@ class GLP_OT_SVLoRA(TrainerX):
         for _ in range(self.opt_steps_per_batch):
             self.optimizer.step()
 
-        with torch.no_grad():  # one host fetch: [loss, acc, probs]
+        with torch.no_grad():  # one host fetch: [loss, acc, probs, labels]
             probs = torch.softmax(logits.detach().float(), -1)
             m = torch.cat([loss.detach().float()[None],
                            accuracy_from_logits(logits.detach(), label)[None],
-                           probs.ravel()]).cpu().numpy()
+                           probs.ravel(), label.float()]).cpu().numpy()
         loss_v, acc = float(m[0]), float(m[1])
         self.detect_anomaly(loss_v)
         loss_summary = {"loss": loss_v, "acc": acc}
-        label_h = np.asarray(batch["label"]).astype(np.int64)
+        n = label.shape[0]
+        label_h = m[2 + n * self.n_cls:].astype(np.int64)
         if len(set(label_h.tolist())) == 1:
             loss_summary["auc"] = 1
         else:
-            loss_summary["auc"] = eval_metrics.compute_auc(m[2:].reshape(-1, self.n_cls), label_h,
-                                                           num_classes=self.n_cls)
+            loss_summary["auc"] = eval_metrics.compute_auc(
+                m[2:2 + n * self.n_cls].reshape(n, self.n_cls), label_h, num_classes=self.n_cls)
 
         if (self.batch_idx + 1) == self.num_batches:
             self.update_lr()
@@ -221,13 +222,15 @@ class GLP_OT_SVLoRA(TrainerX):
         return loss_summary
 
     def _to_device(self, x):
-        return torch.as_tensor(np.asarray(x)).to(self.device, non_blocking=True)
+        """A batch array (numpy, or a tensor from ``prefetch_to_device``) on
+        the trainer's device."""
+        return torch.as_tensor(x).to(self.device, non_blocking=True)
 
     def _target_attr(self, attrs):
         if self.disable_attr:
             return None
         idx = list(self.cfg.DATASET.ATTRIBUTES).index(self.cfg.DATASET.ATTRIBUTE_TYPE)
-        return self._to_device(np.asarray(attrs)[:, idx])
+        return self._to_device(attrs[:, idx])
 
     def parse_batch_train(self, batch):
         attrs = batch["attrs"]
@@ -256,6 +259,24 @@ class GLP_OT_SVLoRA(TrainerX):
                     host = _host_copy(arr)
                     for i in range(host.shape[0]):
                         out[_lora_key(i, part, leaf)] = host[i]
+        return out
+
+    def named_parameters(self):
+        """Every parameter (frozen and trainable) under dotted names, the
+        keys of the JAX trainer's: the CLI's count_parameters tables
+        (utils/fed_utils.py:103) read them."""
+        out = {}
+
+        def flatten(node, prefix):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    flatten(v, f"{prefix}.{k}")
+                else:
+                    out[f"{prefix}.{k}"] = v
+
+        flatten(self.frozen["visual"], "image_encoder")
+        flatten(self.frozen["text"], "text_encoder")
+        out.update(self.state_dict())
         return out
 
     @torch.no_grad()

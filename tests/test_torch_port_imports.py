@@ -1,5 +1,6 @@
 """The port (fairfedmed_tpu_torch) and chip_smoke.py stand alone: they import
-neither JAX nor anything of the JAX package."""
+neither JAX nor anything of the JAX package, and none of the packages the
+GPU machine lacks (PyYAML, cv2, pandas, tensorboard) at import time."""
 
 import os
 import re
@@ -31,6 +32,8 @@ def test_port_and_chip_smoke_import_without_jax():
         + ["import chip_smoke",
            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'optax', "
            "'fairfedmed_tpu.')) or m == 'fairfedmed_tpu')",
+           "bad += sorted(m for m in sys.modules if m.split('.')[0] in "
+           "('yaml', 'cv2', 'pandas', 'tensorboard'))",
            "assert not bad, bad", "print('clean')"])
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
