@@ -9,48 +9,66 @@ Phases, each printing one JSON line:
    the CUDA kernels from ``fairfedmed_tpu_torch/csrc`` (one nvcc per source,
    all at once).
 2. ``kernel_checks``: each attention kernel (forward, backward) against its
-   plain PyTorch version at the main path's shapes, fp32 (TF32 off) and bf16,
-   with the max error beside its tolerance; times of the kernel, the plain
-   version and ``scaled_dot_product_attention`` (a yardstick the port never
-   calls).  Times are device time from torch.profiler (the kernels' summed
+   plain PyTorch version at the paths' shapes (the SLO and OCT vision
+   batches, the text tower), fp32 (TF32 off) and bf16, with the max error
+   beside its tolerance; times of the kernel, the plain version and
+   ``scaled_dot_product_attention`` (a yardstick the port never calls).
+   Times are device time from torch.profiler (the kernels' summed
    durations), warm (one input set, resident in L2) and L2-cold (rotating
    over input sets that together exceed 4x the L2); beside them, CUDA events
    around back-to-back calls and the host's enqueue time per call, which
    show when a call is bound by the host rather than the device.
-3. ``small_reference``: the FairLoRA trainer at the ``test-vit-224`` preset,
-   fp32, built from one seed on the CPU (plain attention) and on the GPU
-   (the kernels): logits and one training step must agree.
+3. ``small_reference``: the same seeded trainer built on the CPU (plain
+   attention) and on the GPU (the kernels), fp32: FairLoRA at
+   ``test-vit-224`` on SLO fundus, at ``test-rn`` on OCT with COT and at
+   ``test-vit-224`` on OCT with Sinkhorn; logits, one training step and the
+   state after it must agree, and the solvers stop at the same iteration.
 4. ``main_path``: one FedOTPLoRA round of the GLP_OT_SVLoRA trainer at
    ViT-B/16 full width (seeded random weights, bf16): 2 clients x 3 local
    steps of batch 32 (two optimizer steps each), ``state_dict`` harvest,
    ``average_weights_ema``, local prompt rows kept per client, then
-   ``test()`` on 100 images per client through ``Classification_oph``.  The
-   kernel launch counters are zeroed just before and read just after; the
-   counts must equal what the layer structure implies.  One more training
-   step then runs under torch.profiler (``main_path_profile``): kernel time
-   by class and the device's idle share of a step.
-5. ``cli_path``: the port's CLI, ``fairfedmed_tpu_torch.federated_main.main``,
-   with the flags of ``scripts/fairfedlora_fairfedmed.sh`` read from the
-   script (the real config files, ViT-B/16 at full width and depth, batch
-   32 / 100), except ``--root`` and ``--output-dir`` (under ``build/``),
-   ``--round 2`` and no ``--parallel_clients``.  It reads a FairFedMed
-   fixture written here (3 sites x 64 train / 100 test NPZs of 224x224
-   uint8 SLO fundus, half of them deflate-compressed) through the YAML
-   configs, ``DataManager``, the dataset and the native NPZ reader.  Round 0
-   trains all 3 clients, round 1 the 2 that ``np.random.choice`` draws, and
-   every round evaluates all 3.  Launch counts must match the batches of the
-   clients the log shows were trained; losses, accuracies and AUCs must be
-   finite, and the final per-client weights must be written.  Beside them:
-   time per round, step times, the NPZ decoder in use, the host's data time
-   per batch, peak memory, and the time of the batch's host-to-device copy.
+   ``test()`` on 100 images per client through ``Classification_oph``.  One
+   more training step then runs under torch.profiler (``main_path_profile``):
+   kernel time by class and the device's idle share of a step.
+5. The port's CLI, ``fairfedmed_tpu_torch.federated_main.main``, with the
+   flags of a launcher script read from the script (the real config files at
+   full width and depth, batch 32 / 100, bf16), except ``--root`` and
+   ``--output-dir`` (under ``build/``), ``--round`` and no
+   ``--parallel_clients``, on FairFedMed fixtures written here (3 sites):
+   - ``cli_path``: ``scripts/fairfedlora_fairfedmed.sh`` (ViT-B/16, SLO
+     fundus), 2 rounds, 64 train / 100 test NPZs per site of 224x224 uint8
+     SLO fundus, half of them deflate-compressed;
+   - ``oct_path``: ``scripts/fairfedlora_fairfedmed_oct.sh`` (ViT-B/16 on
+     3D OCT B-scans, 2 slices of 16), 2 rounds, 32 train / 8 test NPZs per
+     site of ``oct_bscans`` uint8 [128, 200, 200], so the dataset's [::4]
+     stride and per-slice 200->224 resize run for real; then a profiled step;
+   - ``rn50_path``: ``scripts/fairfedlora_fairfedmed_rn50.sh`` (RN50,
+     FairLoRA rank 32 / alpha 8) on cli_path's SLO fixture, 2 rounds; then a
+     profiled step;
+   - ``rn50_oct_path``: ``scripts/fairfedlora_fairfedmed_oct_rn50.sh`` on
+     oct_path's fixture, 1 round.
+   Round 0 trains all 3 clients, round 1 the 2 that ``np.random.choice``
+   draws, and every round evaluates all 3.  Launch counts must match the
+   batches of the clients the log shows were trained; losses, accuracies
+   and AUCs must be finite, the final per-client weights written (with
+   ``proj_per_3d_slice`` on OCT, and finite BatchNorm running statistics
+   that moved from their init on RN50).  Beside them: time per round, step
+   times, the NPZ decoder in use, the host's data time per batch, peak
+   memory, and the time of the batch's host-to-device copy.
+6. ``ot_path``: the trainer driven directly at ViT-B/16 on batch-32 SLO
+   batches with the launchers' OT settings: FairLoRA with OT None, Sinkhorn
+   and COT, and the prompt-only GLP_OT (COT, ln_pre unfrozen), a few steps
+   each; every plan valid, the solver's iterations and the time OT adds per
+   step against OT None.
 
-Then the ``kernels`` line (``launches`` from main_path and
-``launches_cli_path`` from cli_path; with each tensor-core kernel's registers and
-spills from ptxas, its shared memory and waves from the CUDA runtime, and
-its bound share from the cold time), the ``nvidia-smi`` name/power line,
-and last
-``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is then
-not 0 and the last line is not printed.
+Every path zeroes the kernel launch counters just before it runs and reads
+them just after; the counts must equal what the layer structure implies.
+Then the ``kernels`` line (``launches`` from main_path, ``launches_<path>``
+from each other path; with each tensor-core kernel's registers and spills
+from ptxas, its shared memory and waves from the CUDA runtime, and its bound
+share from the cold time), the total time, the ``nvidia-smi`` name/power
+line, and last ``{"ok": true, "device": {...}}``.  Any failure raises: the
+exit code is then not 0 and the last line is not printed.
 """
 
 from __future__ import annotations
@@ -77,6 +95,7 @@ from fairfedmed_tpu_torch.config import get_cfg_default
 from fairfedmed_tpu_torch.fed.aggregate import average_weights_ema
 from fairfedmed_tpu_torch.ops import _build
 from fairfedmed_tpu_torch.ops import attention as A
+from fairfedmed_tpu_torch.ops.sinkhorn import entropic_cot, sinkhorn
 from fairfedmed_tpu_torch.train.engine import build_trainer
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -92,7 +111,14 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke_output")
 SCRIPT = os.path.join(REPO, "scripts", "fairfedlora_fairfedmed.sh")
+OCT_SCRIPT = os.path.join(REPO, "scripts", "fairfedlora_fairfedmed_oct.sh")
+RN50_SCRIPT = os.path.join(REPO, "scripts", "fairfedlora_fairfedmed_rn50.sh")
+RN50_OCT_SCRIPT = os.path.join(REPO, "scripts", "fairfedlora_fairfedmed_oct_rn50.sh")
 CLI_SITES, CLI_TRAIN, CLI_TEST = 3, 64, 100
+# a FairFedMed OCT member: 128 B-scans of 200x200 uint8 (dataset.md:13-14);
+# one full training batch of 32 volumes per site, 8 test volumes (the test
+# batch of 100 cycles them)
+OCT_SHAPE, OCT_TRAIN, OCT_TEST = (128, 200, 200), 32, 8
 
 
 def emit(obj):
@@ -163,6 +189,9 @@ def host_ms(fn, iters=20, warmup=3) -> float:
 KERNEL_SHAPES = {  # name: (n = batch*heads, L, dh, causal)
     "vision_train": (32 * 12, 197, 64, False),
     "vision_eval": (100 * 12, 197, 64, False),
+    # OCT: 2 slices of 16 B-scans per volume double the vision batch
+    "vision_train_oct": (64 * 12, 197, 64, False),
+    "vision_eval_oct": (200 * 12, 197, 64, False),
     "text_16": (32, 16, 64, True),
     "text_77": (32, 77, 64, True),
 }
@@ -312,9 +341,11 @@ def ptxas_kernel(log: str, entry: str) -> dict:
 # phases 3 and 4: the trainer
 # --------------------------------------------------------------------------- #
 
-def fairlora_cfg(backbone: str, size: int, prec: str):
+def fairlora_cfg(backbone: str, size: int, prec: str, modality="slo_fundus", ot="None",
+                 trainer="GLP_OT_SVLoRA"):
     """configs/trainers/GLP_OT/vit_b16_oph.yaml with the flags of
-    scripts/fairfedlora_fairfedmed.sh (attribute race), built in code."""
+    scripts/fairfedlora_fairfedmed.sh (attribute race), built in code; the
+    OCT launchers' 16 B-scans per slice, and the launchers' OT settings."""
     cfg = get_cfg_default()
     cfg.SEED = 1
     cfg.OUTPUT_DIR = OUT_DIR
@@ -327,7 +358,8 @@ def fairlora_cfg(backbone: str, size: int, prec: str):
     cfg.DATASET.USERS = 2
     cfg.DATASET.ATTRIBUTE_TYPE = "race"
     cfg.DATASET.ATTRIBUTES = list(ATTRIBUTES)
-    cfg.DATASET.MODALITY_TYPE = "slo_fundus"
+    cfg.DATASET.MODALITY_TYPE = modality
+    cfg.DATASET.DIM_PER_3D_SLICE = 16
     cfg.DATALOADER.TRAIN_X.BATCH_SIZE = 32
     cfg.DATALOADER.TEST.BATCH_SIZE = 100
     cfg.OPTIM.NAME = "sgd"
@@ -341,11 +373,15 @@ def fairlora_cfg(backbone: str, size: int, prec: str):
     cfg.TRAIN.CHECKPOINT_FREQ = 5
     cfg.TRAIN.PRINT_FREQ = 10
     cfg.TEST.EVALUATOR = "Classification_oph"
-    cfg.TRAINER.NAME = "GLP_OT_SVLoRA"
+    cfg.TRAINER.NAME = trainer
     cfg.TRAINER.GLP_OT.PREC = prec
     cfg.TRAINER.GLP_OT.N = 2
     cfg.TRAINER.GLP_OT.N_CTX = 4
-    cfg.TRAINER.GLP_OT.OT = "None"
+    cfg.TRAINER.GLP_OT.OT = ot
+    cfg.TRAINER.GLP_OT.EPS = 0.1
+    cfg.TRAINER.GLP_OT.THRESH = 0.001
+    cfg.TRAINER.GLP_OT.MAX_ITER = 100
+    cfg.TRAINER.GLP_OT.TOP_PERCENT = 0.8
     cfg.TRAINER.GLP_OT_LORA.UNFREEZE_IMAGE_ENCODER = True
     cfg.TRAINER.GLP_OT_LORA.RANK = 12
     cfg.TRAINER.GLP_OT_LORA.ALPHA = 2.0
@@ -354,18 +390,18 @@ def fairlora_cfg(backbone: str, size: int, prec: str):
     return cfg
 
 
-def make_batches(rng, n_batches, batch, size):
+def make_batches(rng, n_batches, batch, size, oct_slices=0):
     """Batch dicts as the FairFedMed ClientLoader yields them: grayscale SLO
-    fundus repeated to 3 channels, uint8.  Labels and every attribute are
-    laid out so each demographic group holds both classes (group AUCs are
-    defined), then shuffled."""
+    fundus repeated to 3 channels, or ``oct_slices`` OCT B-scans, uint8.
+    Labels and every attribute are laid out so each demographic group holds
+    both classes (group AUCs are defined), then shuffled."""
     out = []
     for _ in range(n_batches):
         i = np.arange(batch)
         order = rng.permutation(batch)
-        slo = rng.integers(0, 256, (batch, 1, size, size), dtype=np.uint8)
+        img = rng.integers(0, 256, (batch, oct_slices or 1, size, size), dtype=np.uint8)
         out.append({
-            "img": np.repeat(slo, 3, axis=1),
+            "img": img if oct_slices else np.repeat(img, 3, axis=1),
             "label": (i % 2).astype(np.int32)[order],
             "attrs": np.stack([(i // 2) % GROUPS[a] for a in ATTRIBUTES], 1).astype(np.int32)[order],
             "n_valid": batch,
@@ -373,41 +409,65 @@ def make_batches(rng, n_batches, batch, size):
     return out
 
 
-def make_dm(rng, n_train, train_batch, n_test, size):
+def make_dm(rng, n_train, train_batch, n_test, size, oct_slices=0):
     return types.SimpleNamespace(
-        fed_train_loader_x_dict={c: make_batches(rng, n_train, train_batch, size) for c in (0, 1)},
-        fed_test_loader_x_dict={c: make_batches(rng, 1, n_test, size) for c in (0, 1)},
+        fed_train_loader_x_dict={c: make_batches(rng, n_train, train_batch, size, oct_slices)
+                                 for c in (0, 1)},
+        fed_test_loader_x_dict={c: make_batches(rng, 1, n_test, size, oct_slices)
+                                for c in (0, 1)},
         num_classes=2, lab2cname=dict(enumerate(CLASSNAMES)),
         dataset=types.SimpleNamespace(classnames=list(CLASSNAMES)))
 
 
+SMALL_REFERENCE = (  # (backbone, size, modality, OT)
+    ("test-vit-224", 224, "slo_fundus", "None"),
+    ("test-rn", 32, "oct_bscans", "COT"),
+    ("test-vit-224", 224, "oct_bscans", "Sinkhorn"),
+)
+
+
 def small_reference(dev):
     """The same seeded trainer on the CPU (plain attention) and on the GPU (the
-    kernels), fp32 at test-vit-224 (vision head width 64, text 16)."""
-    cfg = fairlora_cfg("test-vit-224", 224, "fp32")
-    dm = make_dm(np.random.default_rng(7), 1, 8, 8, 224)
-    trainers = {d: build_trainer(cfg, dm, device=d) for d in ("cpu", dev)}
-    batch = dm.fed_train_loader_x_dict[0][0]
-    attr = torch.as_tensor(batch["attrs"][:, ATTRIBUTES.index("race")])
-    logits = {d: tr.model_inference(torch.as_tensor(batch["img"]).to(d), attr.to(d)).cpu()
-              for d, tr in trainers.items()}
-    steps = {}
-    for d, tr in trainers.items():
-        tr.batch_idx, tr.num_batches = 0, 2  # not the last batch: no LR step
-        steps[d] = (tr.forward_backward(batch), tr.state_dict())
-    logit_err = (logits["cpu"] - logits[dev]).abs().max().item()
-    loss_err = abs(steps["cpu"][0]["loss"] - steps[dev][0]["loss"])
-    state_err = max(float(np.abs(steps["cpu"][1][k] - steps[dev][1][k]).max())
-                    for k in steps["cpu"][1])
-    tol = {"logits": 1e-4, "loss": 1e-5, "state": 1e-6}
-    res = {"phase": "small_reference", "preset": "test-vit-224", "prec": "fp32",
-           "logits_max_abs_err": logit_err, "loss_abs_err": loss_err,
-           "state_max_abs_err": state_err, "tol": tol,
-           "logits_shape": list(logits[dev].shape)}
-    if not (logit_err <= tol["logits"] and loss_err <= tol["loss"] and state_err <= tol["state"]
-            and torch.isfinite(logits[dev]).all()):
-        raise AssertionError(f"GPU trainer disagrees with the CPU trainer: {res}")
-    return res
+    kernels), fp32: FairLoRA at test-vit-224 (vision head width 64, text 16)
+    on SLO fundus, at test-rn on OCT with COT and at test-vit-224 on OCT with
+    Sinkhorn.  Logits, one training step's loss and the state after it must
+    agree; ResNet running statistics (batch moments, not SGD-damped) to 1e-5
+    relative to their largest value."""
+    rows = []
+    tol = {"logits": 1e-4, "loss": 1e-5, "state": 1e-6, "running_stats_rel": 1e-5}
+    for backbone, size, modality, ot in SMALL_REFERENCE:
+        cfg = fairlora_cfg(backbone, size, "fp32", modality=modality, ot=ot)
+        oct_slices = 32 if modality == "oct_bscans" else 0
+        dm = make_dm(np.random.default_rng(7), 1, 8, 8, size, oct_slices)
+        trainers = {d: build_trainer(cfg, dm, device=d) for d in ("cpu", dev)}
+        batch = dm.fed_train_loader_x_dict[0][0]
+        attr = torch.as_tensor(batch["attrs"][:, ATTRIBUTES.index("race")])
+        logits = {d: tr.model_inference(torch.as_tensor(batch["img"]).to(d), attr.to(d)).cpu()
+                  for d, tr in trainers.items()}
+        steps, iterations = {}, {}
+        for d, tr in trainers.items():
+            tr.batch_idx, tr.num_batches = 0, 2  # not the last batch: no LR step
+            steps[d] = (tr.forward_backward(batch), tr.state_dict())
+            iterations[d] = None if tr.ot_iterations is None else int(tr.ot_iterations)
+        logit_err = (logits["cpu"] - logits[dev]).abs().max().item()
+        loss_err = abs(steps["cpu"][0]["loss"] - steps[dev][0]["loss"])
+        state_err, stats_ok = 0.0, True
+        for k, want in steps["cpu"][1].items():
+            err = float(np.abs(want - steps[dev][1][k]).max())
+            if "running_" in k:
+                stats_ok &= err <= tol["running_stats_rel"] * max(1.0, float(np.abs(want).max()))
+            else:
+                state_err = max(state_err, err)
+        res = {"preset": backbone, "modality": modality, "ot": ot, "prec": "fp32",
+               "logits_max_abs_err": logit_err, "loss_abs_err": loss_err,
+               "state_max_abs_err": state_err, "running_stats_within_tol": stats_ok,
+               "ot_iterations": iterations, "logits_shape": list(logits[dev].shape)}
+        rows.append(res)
+        if not (logit_err <= tol["logits"] and loss_err <= tol["loss"]
+                and state_err <= tol["state"] and stats_ok
+                and iterations["cpu"] == iterations[dev] and torch.isfinite(logits[dev]).all()):
+            raise AssertionError(f"GPU trainer disagrees with the CPU trainer: {res}")
+    return {"phase": "small_reference", "tol": tol, "rows": rows}
 
 
 def main_path(dev):
@@ -518,20 +578,22 @@ def script_flags(path=SCRIPT) -> list:
     return out
 
 
-def write_fairfedmed_fixture(root, size=224, seed=3):
+def write_fairfedmed_fixture(root, n_train=CLI_TRAIN, n_test=CLI_TEST, modality="slo_fundus",
+                             size=224, seed=3):
     """The FairFedMed layout of tests/fixtures.py:13-45, written with numpy
-    and csv: ``root/fairfedmed/all/data_*.npz`` (slo_fundus uint8
-    [size, size], glaucoma, the five attributes; every second file
-    deflate-compressed) and ``meta_site{k}_{attr}_{split}.csv``.  Labels and
-    attributes are laid out so every demographic group holds both classes,
-    then shuffled."""
+    and csv for ``CLI_SITES`` sites: ``root/fairfedmed/all/data_*.npz``
+    (glaucoma, the five attributes, and ``slo_fundus`` uint8 [size, size],
+    every second file deflate-compressed, or ``oct_bscans`` uint8
+    ``OCT_SHAPE``, stored) and ``meta_site{k}_{attr}_{split}.csv``.  Labels
+    and attributes are laid out so every demographic group holds both
+    classes, then shuffled."""
     rng = np.random.default_rng(seed)
     base = os.path.join(root, "fairfedmed")
     all_dir = os.path.join(base, "all")
     os.makedirs(all_dir, exist_ok=True)
     counter, nbytes = 0, 0
     for site in range(1, CLI_SITES + 1):
-        for split, n in (("train", CLI_TRAIN), ("test", CLI_TEST)):
+        for split, n in (("train", n_train), ("test", n_test)):
             i, order = np.arange(n), rng.permutation(n)
             labels = (i % 2)[order]
             attrs = {a: ((i // 2) % GROUPS[a])[order] for a in ATTRIBUTES}
@@ -539,9 +601,13 @@ def write_fairfedmed_fixture(root, size=224, seed=3):
             for j in range(n):
                 fname = f"data_{counter:05d}.npz"
                 path = os.path.join(all_dir, fname)
-                save = np.savez_compressed if counter % 2 else np.savez
-                save(path, slo_fundus=rng.integers(0, 256, (size, size), dtype=np.uint8),
-                     glaucoma=np.asarray(labels[j]),
+                if modality == "oct_bscans":
+                    save = np.savez
+                    pixels = rng.integers(0, 256, OCT_SHAPE, dtype=np.uint8)
+                else:
+                    save = np.savez_compressed if counter % 2 else np.savez
+                    pixels = rng.integers(0, 256, (size, size), dtype=np.uint8)
+                save(path, **{modality: pixels}, glaucoma=np.asarray(labels[j]),
                      **{a: np.asarray(attrs[a][j]) for a in attrs})
                 nbytes += os.path.getsize(path)
                 fnames.append(fname)
@@ -552,7 +618,7 @@ def write_fairfedmed_fixture(root, size=224, seed=3):
                     w = csv.writer(f)
                     w.writerow(["filename"])
                     w.writerows([fn] for fn in fnames)
-    return {"files": counter, "bytes": nbytes}
+    return {"files": counter, "bytes": nbytes, "modality": modality}
 
 
 def time_h2d(batch_img, dev, iters=10):
@@ -581,24 +647,21 @@ def time_h2d(batch_img, dev, iters=10):
             "h2d_pinned_gb_per_s": nbytes / statistics.median(pinned_ms) / 1e6}
 
 
-def cli_path(dev):
+def run_cli(script, data_root, out_dir, rounds, dev):
+    """``fairfedmed_tpu_torch.federated_main.main`` with the flags of a
+    launcher script (the real config files, batch 32 / 100), except
+    ``--root`` and ``--output-dir`` (under ``build/``), ``--round`` and no
+    ``--parallel_clients``.  The kernel counters are zeroed just before and
+    read just after; the expected counts come from the batches of the
+    clients that the log shows were trained and of every client's
+    evaluation.  Returns what the path's checks read."""
     from fairfedmed_tpu_torch import federated_main as fm
-    from fairfedmed_tpu_torch import native
 
-    data_root = os.path.join(REPO, "build", "chip_smoke_data")
-    out_dir = os.path.join(REPO, "build", "chip_smoke_cli")
-    for d in (data_root, out_dir):
-        shutil.rmtree(d, ignore_errors=True)
-    t0 = time.perf_counter()
-    fixture = write_fairfedmed_fixture(data_root)
-    fixture["write_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    decoder = native.decoder()  # builds the native reader now, not inside a step
-    decoder_build_s = time.perf_counter() - t0
-
-    argv = script_flags()
-    for flag, value in (("--root", data_root), ("--output-dir", out_dir), ("--round", "2"),
-                        ("--config-file", None), ("--dataset-config-file", None)):
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = script_flags(script)
+    for flag, value in (("--root", data_root), ("--output-dir", out_dir),
+                        ("--round", str(rounds)), ("--config-file", None),
+                        ("--dataset-config-file", None)):
         i = argv.index(flag)
         argv[i + 1] = value or os.path.join(REPO, argv[i + 1])  # config paths from the repo
     args = fm.build_arg_parser().parse_args(argv)
@@ -628,7 +691,7 @@ def cli_path(dev):
         return trainer
 
     fm.build_trainer = recording_build
-    console_path = os.path.join(REPO, "build", "chip_smoke_cli_console.txt")
+    console_path = out_dir + "_console.txt"
     saved_stdout = sys.stdout
     torch.cuda.reset_peak_memory_stats()
     A.attention_fwd.launches = 0
@@ -663,42 +726,219 @@ def cli_path(dev):
     n_train = sum(len(trainer.fed_train_loader_x_dict[c]) for cs in trained.values() for c in cs)
     n_eval = len(result["acc"]) * sum(len(trainer.fed_test_loader_x_dict[c])
                                       for c in range(CLI_SITES))
+    # every batch runs each text block (and each ViT block) once; the
+    # backward reaches every text block and the ViT blocks from the first
+    # whose input carries a gradient: block 1 when only the adapters train,
+    # block 0 when the slice projector (or a trainable ln_pre) sits before it
     clip = trainer.bundle.clip_cfg
-    v, t = clip.vision_layers, clip.transformer_layers
-    # every batch (train or eval) runs each vision and text block once; the
-    # backward skips vision block 0, whose input carries no gradient
+    t = clip.transformer_layers
+    if trainer.backbone_type == "vit":
+        v = clip.vision_layers
+        v_bwd = v if (trainer.is_3d_input or "visual_ln_pre" in trainer.trainable) else v - 1
+        width, layers = [clip.vision_width, clip.transformer_width], [v, t]
+    else:  # the ResNet tower runs no attention kernel
+        rn = trainer.bundle.rn_cfg
+        v = v_bwd = 0
+        width, layers = [rn.width, rn.embed_dim, clip.transformer_width], [list(rn.layers), t]
     expected = {"attention_fwd": (n_train + n_eval) * (v + t),
-                "attention_bwd": n_train * (v - 1 + t)}
+                "attention_bwd": n_train * (v_bwd + t)}
     finals = {}
     for idx in range(CLI_SITES):
         with np.load(os.path.join(out_dir, f"global_client{idx}_final.npz")) as z:
-            finals[idx] = len(z.files) > 0 and all(np.isfinite(z[k]).all() for k in z.files)
+            finals[idx] = {k: z[k] for k in z.files}
     cum = result["time"]
-    res = {"phase": "cli_path", "entry": "fairfedmed_tpu_torch.federated_main.main",
-           "argv": argv, "model": trainer.cfg.MODEL.BACKBONE.NAME,
-           "width": [clip.vision_width, clip.transformer_width], "layers": [v, t],
+    res = {"entry": "fairfedmed_tpu_torch.federated_main.main", "argv": argv,
+           "model": trainer.cfg.MODEL.BACKBONE.NAME, "backbone_type": trainer.backbone_type,
+           "modality": trainer.cfg.DATASET.MODALITY_TYPE, "width": width, "layers": layers,
            "prec": trainer.cfg.TRAINER.GLP_OT.PREC, "device": str(trainer.device),
-           "fixture": fixture, "decoder": decoder, "decoder_build_s": decoder_build_s,
            "main_s": main_s, "round_s": [cum[0]] + [b - a for a, b in zip(cum, cum[1:])],
            "trained_clients": trained, "train_batches": n_train, "eval_batches": n_eval,
            "steps": steps, "step_ms_median": statistics.median(s["ms"] for s in steps),
            "epochs": epochs,
            "data_ms_per_batch_median": statistics.median(e["data_ms_per_batch"] for e in epochs),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "acc": result["acc"], "auc": result["auc"], "final_npz_finite": finals,
+           "acc": result["acc"], "auc": result["auc"],
+           "final_npz_finite": {i: len(z) > 0 and all(np.isfinite(a).all() for a in z.values())
+                                for i, z in finals.items()},
            "launches": launches, "expected_launches": expected}
+    res.update(time_h2d(next(iter(trainer.fed_train_loader_x_dict[0]))["img"], dev))
+    return res, finals, trainer
+
+
+def check_cli_run(res, rounds):
+    """What every CLI path must show: the clients each round trains, finite
+    losses and metrics, finite final weights, the expected launches."""
+    trained = res["trained_clients"]
+    want = {0: list(range(CLI_SITES)), 1: int(0.8 * CLI_SITES)}
+    if trained.get(0) != want[0] or (rounds > 1 and len(trained.get(1, [])) != want[1]):
+        raise AssertionError(f"unexpected clients trained: {trained}")
+    if not res["steps"] or not all(np.isfinite(s["loss"]) for s in res["steps"]):
+        raise AssertionError(f"non-finite or missing losses: {res['steps']}")
+    if len(res["acc"]) != rounds or not np.isfinite(res["acc"] + res["auc"]).all():
+        raise AssertionError(f"non-finite or missing metrics: {res['acc']} {res['auc']}")
+    if not all(res["final_npz_finite"].values()):
+        raise AssertionError(f"final weights missing or not finite: {res['final_npz_finite']}")
+    if res["launches"] != res["expected_launches"]:
+        raise AssertionError(f"kernel launches {res['launches']} != expected "
+                             f"{res['expected_launches']}")
+
+
+SLO_ROOT = os.path.join(REPO, "build", "chip_smoke_data")
+OCT_ROOT = os.path.join(REPO, "build", "chip_smoke_data_oct")
+
+
+def _write_fixture(root, **kw):
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    fixture = write_fairfedmed_fixture(root, **kw)
+    fixture["write_s"] = time.perf_counter() - t0
+    return fixture
+
+
+def cli_path(dev):
+    """The launcher script's flags, ViT-B/16 on SLO fundus, 2 rounds."""
+    from fairfedmed_tpu_torch import native
+
+    fixture = _write_fixture(SLO_ROOT)
+    t0 = time.perf_counter()
+    decoder = native.decoder()  # builds the native reader now, not inside a step
+    decoder_build_s = time.perf_counter() - t0
+    res, _, _ = run_cli(SCRIPT, SLO_ROOT, os.path.join(REPO, "build", "chip_smoke_cli"), 2, dev)
+    res = {"phase": "cli_path", **res, "fixture": fixture, "decoder": decoder,
+           "decoder_build_s": decoder_build_s}
     if decoder != "native":
         res["decoder_build_log"] = native.build_log()[-2000:]
-    res.update(time_h2d(next(iter(trainer.fed_train_loader_x_dict[0]))["img"], dev))
     emit(res)
-    if trained.get(0) != list(range(CLI_SITES)) or len(trained.get(1, [])) != int(0.8 * CLI_SITES):
-        raise AssertionError(f"unexpected clients trained: {trained}")
-    if not steps or not all(np.isfinite(s["loss"]) for s in steps):
-        raise AssertionError(f"non-finite or missing losses: {steps}")
-    if len(result["acc"]) != 2 or not np.isfinite(result["acc"] + result["auc"]).all():
-        raise AssertionError(f"non-finite or missing metrics: {result}")
-    if not all(finals.values()):
-        raise AssertionError(f"final weights missing or not finite: {finals}")
+    check_cli_run(res, 2)
+    return res["launches"]
+
+
+def oct_path(dev):
+    """scripts/fairfedlora_fairfedmed_oct.sh: ViT-B/16 FairLoRA on 3D OCT
+    B-scans (32 of each volume's 128, 2 slices of 16), 2 rounds."""
+    fixture = _write_fixture(OCT_ROOT, n_train=OCT_TRAIN, n_test=OCT_TEST, modality="oct_bscans")
+    res, finals, trainer = run_cli(OCT_SCRIPT, OCT_ROOT,
+                                   os.path.join(REPO, "build", "chip_smoke_oct"), 2, dev)
+    res = {"phase": "oct_path", **res, "fixture": fixture}
+    emit(res)
+    check_cli_run(res, 2)
+    if not all(z["proj_per_3d_slice.weight"].shape == (3, 16, 5, 5) for z in finals.values()):
+        raise AssertionError("proj_per_3d_slice.weight missing from the final weights")
+    emit(profile_step(trainer, next(iter(trainer.fed_train_loader_x_dict[0])),
+                      res["step_ms_median"], "oct_path_profile"))
+    return res["launches"]
+
+
+def _check_bn_stats(finals):
+    """Every BatchNorm running statistic in the final weights is finite and
+    has moved from its init (mean 0, var 1)."""
+    for idx, z in finals.items():
+        keys = [k for k in z if "running_" in k]
+        moved = all(np.abs(z[k]).max() > 0 if k.endswith("running_mean")
+                    else np.abs(z[k] - 1).max() > 0 for k in keys)
+        if not keys or not moved or not all(np.isfinite(z[k]).all() for k in keys):
+            raise AssertionError(f"client {idx}: BatchNorm running statistics missing, "
+                                 "non-finite or unmoved")
+    return len(keys)
+
+
+def rn50_path(dev):
+    """scripts/fairfedlora_fairfedmed_rn50.sh: RN50 FairLoRA (rank 32, alpha
+    8) on the SLO fixture cli_path wrote, 2 rounds."""
+    res, finals, trainer = run_cli(RN50_SCRIPT, SLO_ROOT,
+                                   os.path.join(REPO, "build", "chip_smoke_rn50"), 2, dev)
+    res = {"phase": "rn50_path", **res, "bn_stat_tensors": _check_bn_stats(finals)}
+    emit(res)
+    check_cli_run(res, 2)
+    emit(profile_step(trainer, next(iter(trainer.fed_train_loader_x_dict[0])),
+                      res["step_ms_median"], "rn50_path_profile"))
+    return res["launches"]
+
+
+def rn50_oct_path(dev):
+    """scripts/fairfedlora_fairfedmed_oct_rn50.sh: RN50 on the OCT fixture
+    oct_path wrote, 1 round."""
+    res, finals, trainer = run_cli(RN50_OCT_SCRIPT, OCT_ROOT,
+                                   os.path.join(REPO, "build", "chip_smoke_rn50_oct"), 1, dev)
+    res = {"phase": "rn50_oct_path", **res, "bn_stat_tensors": _check_bn_stats(finals)}
+    emit(res)
+    check_cli_run(res, 1)
+    emit(profile_step(trainer, next(iter(trainer.fed_train_loader_x_dict[0])),
+                      res["step_ms_median"], "rn50_oct_path_profile"))
+    return res["launches"]
+
+
+OT_RUNS = (  # (trainer, OT, UNFREEZE_IMAGE_ENCODER)
+    ("GLP_OT_SVLoRA", "None", True),
+    ("GLP_OT_SVLoRA", "Sinkhorn", True),
+    ("GLP_OT_SVLoRA", "COT", True),
+    ("GLP_OT", "COT", True),
+)
+OT_STEPS = 6
+
+
+def ot_path(dev):
+    """The trainer driven directly at ViT-B/16 (bf16), batch 32 SLO fundus
+    in memory, at the launchers' EPS 0.1 / THRESH 0.001 / MAX_ITER 100 /
+    TOP_PERCENT 0.8: FairLoRA with OT None (the baseline), Sinkhorn and COT,
+    and the prompt-only GLP_OT (COT, ln_pre unfrozen), OT_STEPS steps each.
+    Every step must be valid (finite loss); beside each: the solver's
+    iterations per step, the median step time against OT None's, and the
+    solver alone on the step's [B*n_cls, M, N] problem (its host enqueue
+    time per call, which a host-bound step pays, and CUDA events around
+    back-to-back calls)."""
+    runs, expected = [], {"attention_fwd": 0, "attention_bwd": 0}
+    A.attention_fwd.launches = 0
+    A.attention_bwd.launches = 0
+    for trainer_name, ot, unfreeze in OT_RUNS:
+        cfg = fairlora_cfg("ViT-B/16", 224, "fp16", ot=ot, trainer=trainer_name)
+        cfg.TRAINER.GLP_OT_LORA.UNFREEZE_IMAGE_ENCODER = unfreeze
+        dm = make_dm(np.random.default_rng(cfg.SEED), OT_STEPS, 32, 1, 224)
+        trainer = build_trainer(cfg, dm, device=dev)
+        trainer.num_batches = OT_STEPS + 1  # no LR step
+        steps = []
+        for i, batch in enumerate(dm.fed_train_loader_x_dict[0]):
+            trainer.batch_idx = i
+            t = time.perf_counter()
+            out = trainer.forward_backward(batch)  # ends in a host fetch
+            ms = (time.perf_counter() - t) * 1e3
+            steps.append({"loss": out["loss"], "ms": ms, "ot_iterations": (
+                None if trainer.ot_iterations is None else int(trainer.ot_iterations))})
+        clip = trainer.bundle.clip_cfg
+        v, t = clip.vision_layers, clip.transformer_layers
+        v_bwd = v if "visual_ln_pre" in trainer.trainable else v - 1
+        expected["attention_fwd"] += OT_STEPS * (v + t)
+        expected["attention_bwd"] += OT_STEPS * (v_bwd + t)
+        run = {"trainer": trainer_name, "ot": ot, "unfreeze_image_encoder": unfreeze,
+               "optimizer_steps_per_batch": trainer.opt_steps_per_batch, "steps": steps,
+               "step_ms_median_after_first": statistics.median(s["ms"] for s in steps[1:])}
+        if ot != "None":
+            rows, m = 32 * len(CLASSNAMES), (224 // clip.vision_patch_size) ** 2
+            gen = torch.Generator(device=dev).manual_seed(0)
+            sim = torch.rand((rows, m, cfg.TRAINER.GLP_OT.N), device=dev, generator=gen) * 0.8 - 0.2
+            kernel = torch.exp(-(1.0 - sim) / 0.1)
+            xx = torch.full((rows, m), 1.0 / m, device=dev)
+            yy = torch.full((rows, cfg.TRAINER.GLP_OT.N), 1.0 / cfg.TRAINER.GLP_OT.N, device=dev)
+            solve = (lambda: sinkhorn(kernel, xx, yy, 0.001, 100)) if ot == "Sinkhorn" else \
+                (lambda: entropic_cot(kernel, xx, yy * 0.8, 100, 0.001))
+            run.update(solver_shape=[rows, m, cfg.TRAINER.GLP_OT.N],
+                       solver_host_ms=host_ms(solve, iters=10),
+                       solver_ms_events=cuda_ms(solve, iters=10))
+        runs.append(run)
+        del trainer
+    launches = {"attention_fwd": A.attention_fwd.launches,
+                "attention_bwd": A.attention_bwd.launches}
+    base = runs[0]["step_ms_median_after_first"]
+    for r in runs:
+        r["ms_over_ot_none"] = r["step_ms_median_after_first"] - base
+    emit({"phase": "ot_path", "model": "ViT-B/16", "prec": "fp16 (bf16)", "batch": 32,
+          "eps": 0.1, "thresh": 0.001, "max_iter": 100, "top_percent": 0.8, "runs": runs,
+          "launches": launches, "expected_launches": expected})
+    for r in runs:
+        if not all(np.isfinite(s["loss"]) for s in r["steps"]):
+            raise AssertionError(f"invalid plan or non-finite loss: {r}")
+        if r["ot"] != "None" and not all(1 <= s["ot_iterations"] <= 100 for s in r["steps"]):
+            raise AssertionError(f"solver iterations out of range: {r}")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != expected {expected}")
     return launches
@@ -707,15 +947,17 @@ def cli_path(dev):
 def _kernel_class(name: str) -> str:
     if "attention_" in name:
         return "attention (port kernels)"
+    if any(t in name.lower() for t in ("conv", "cudnn", "fprop", "dgrad", "wgrad")):
+        return "convolution (cuDNN)"
     if any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "nvjet", "wgmma")):
         return "matmul (cuBLAS)"
     return "other (elementwise, norms, reductions, copies)"
 
 
-def profile_step(trainer, batch, step_ms):
-    """One more training step of the main path under torch.profiler: kernel
-    time by class, and the device's idle share of an unprofiled step
-    (``step_ms``: the round's median step after the first)."""
+def profile_step(trainer, batch, step_ms, phase="main_path_profile"):
+    """One more training step of a path under torch.profiler: kernel time by
+    class, and the device's idle share of an unprofiled step (``step_ms``:
+    the path's median step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -726,24 +968,30 @@ def profile_step(trainer, batch, step_ms):
         torch.cuda.synchronize()
     by_class, by_kernel = {}, {}
     for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and evt.device_time_total > 0:
+        # "name#..." rows (Optimizer.step#SGD.step) are annotations spanning
+        # kernels counted in their own rows
+        if evt.device_type == DeviceType.CUDA and evt.device_time_total > 0 and "#" not in evt.key:
             ms = evt.device_time_total / 1e3
             cls = _kernel_class(evt.key)
             by_class[cls] = by_class.get(cls, 0.0) + ms
             by_kernel[evt.key[:90]] = ms
     device_ms = sum(by_class.values())
-    return {"phase": "main_path_profile", "kernel_ms": device_ms, "unprofiled_step_ms": step_ms,
+    return {"phase": phase, "kernel_ms": device_ms, "unprofiled_step_ms": step_ms,
             "device_idle_share": 1 - device_ms / step_ms,
             "kernel_ms_by_class": by_class,
             "top_kernels_ms": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]}
 
 
-def kernels_line(rows, launches, cli_launches):
+PATHS = ("main_path", "cli_path", "oct_path", "rn50_path", "rn50_oct_path", "ot_path")
+
+
+def kernels_line(rows, launches):
     """The two kernels at the vision training shape in bf16, the shape and type
     the main path spends most of its attention time on, with the tensor-core
     kernels' resources: registers and spills from ptxas, shared memory and
     resident blocks from the CUDA runtime, waves = blocks / (SMs x resident
-    blocks per SM), and bound share = bound / cold time."""
+    blocks per SM), and bound share = bound / cold time.  ``launches`` is
+    main_path's count, ``launches_<path>`` every other path's."""
     row = next(r for r in rows if r["shape"] == "vision_train" and r["dtype"] == "bfloat16")
     n, length, dh = row["n_L_dh"]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -758,7 +1006,8 @@ def kernels_line(rows, launches, cli_launches):
         out.append(dict(
             ptxas_kernel(log, f"{name}_mma_kernelILi{dh}E"), name=name, route="cuda",
             source=f"fairfedmed_tpu_torch/csrc/{name}.cu", replaces=tpu_line,
-            launches=launches[name], launches_cli_path=cli_launches[name],
+            launches=launches["main_path"][name],
+            **{f"launches_{p}": launches[p][name] for p in PATHS[1:]},
             max_abs_err=row[f"{kind}_max_abs_err"],
             ms=row[f"kernel_{kind}_ms"], ms_cold=row[f"kernel_{kind}_ms_cold"],
             ms_events=row[f"kernel_{kind}_ms_events"], host_ms=row[f"kernel_{kind}_host_ms"],
@@ -776,6 +1025,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     dev = "cuda"
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
@@ -791,9 +1041,15 @@ def main():
     rows = check_kernels(dev)
     emit({"phase": "kernel_checks", "rows": rows})
     emit(small_reference(dev))
-    launches = main_path(dev)
-    cli_launches = cli_path(dev)
-    emit(kernels_line(rows, launches, cli_launches))
+    launches = {}
+    for name, path in (("main_path", main_path), ("cli_path", cli_path),
+                       ("oct_path", oct_path), ("rn50_path", rn50_path),
+                       ("rn50_oct_path", rn50_oct_path), ("ot_path", ot_path)):
+        t0 = time.perf_counter()
+        launches[name] = path(dev)
+        emit({"phase": f"{name}_done", "s": time.perf_counter() - t0})
+    emit(kernels_line(rows, launches))
+    emit({"phase": "total", "s": time.perf_counter() - t_start})
     print(nvidia_smi_line())
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -251,8 +251,6 @@ class FairFedMedDataset:
         scale, label, attrs int vector).  Modality branches mirror
         data_utils.py:624-713; label and attrs come from the index."""
         m = self.modality_type
-        if m == "oct_bscans_3d":
-            raise NotImplementedError("oct_bscans_3d is not ported yet (ROADMAP M10)")
         raw = self._raw_members(i)
         res = self.resolution
 
@@ -270,6 +268,11 @@ class FairFedMedDataset:
             if oct_img.shape[1] != res:
                 oct_img = np.stack([_resize2d(s, res) for s in oct_img])
             img = oct_img
+        elif m == "oct_bscans_3d":
+            # each voxel floored through an integer before the float cast
+            # (data_utils.py:655-656 astype(int).astype(np.float32)): the
+            # identity for uint8 sites, not for float-valued volumes
+            img = raw["oct_bscans"].astype(np.int64).astype(np.float32)[None]
         elif m == "rnflt":
             img = raw["rnflt"].astype(np.float32)
             if img.shape[0] != res:

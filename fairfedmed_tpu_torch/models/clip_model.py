@@ -229,10 +229,30 @@ def _init_blocks(gen, layers, width, attn_std, fc_std, proj_std):
     }
 
 
-def _tree_map(fn, tree):
+def tree_map(fn, tree):
+    """``fn`` over the leaves of a tree of dicts and lists."""
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def _init_text(gen: torch.Generator, cfg: CLIPConfig) -> dict:
+    tw = cfg.transformer_width
+    return {
+        "token_embedding": _normal(gen, (cfg.vocab_size, tw), 0.02),
+        "positional_embedding": _normal(gen, (cfg.context_length, tw), 0.01),
+        "blocks": _init_blocks(gen, cfg.transformer_layers, tw, attn_std=tw ** -0.5,
+                               fc_std=(2 * tw) ** -0.5,
+                               proj_std=(tw ** -0.5) * ((2 * cfg.transformer_layers) ** -0.5)),
+        "ln_final": _ln_init((tw,), gen.device),
+        "text_projection": _normal(gen, (tw, cfg.embed_dim), tw ** -0.5),
+    }
+
+
+def _logit_scale(device) -> torch.Tensor:
+    return torch.tensor(float(np.log(1 / 0.07)), device=device)
 
 
 def init_clip_params(gen: torch.Generator, cfg: CLIPConfig, dtype=torch.float32,
@@ -240,7 +260,7 @@ def init_clip_params(gen: torch.Generator, cfg: CLIPConfig, dtype=torch.float32,
     """Random CLIP init (no OpenAI checkpoint), drawn from ``gen`` and moved to
     ``device``.  With a CPU generator the weights are the same whatever the
     device; they differ from the JAX package's draws for the same seed."""
-    vw, tw = cfg.vision_width, cfg.transformer_width
+    vw = cfg.vision_width
     n_tokens = cfg.grid_size ** 2 + 1
     dev = gen.device
     visual = {
@@ -255,18 +275,16 @@ def init_clip_params(gen: torch.Generator, cfg: CLIPConfig, dtype=torch.float32,
         "ln_post": _ln_init((vw,), dev),
         "proj": _normal(gen, (vw, cfg.embed_dim), vw ** -0.5),
     }
-    text = {
-        "token_embedding": _normal(gen, (cfg.vocab_size, tw), 0.02),
-        "positional_embedding": _normal(gen, (cfg.context_length, tw), 0.01),
-        "blocks": _init_blocks(gen, cfg.transformer_layers, tw, attn_std=tw ** -0.5,
-                               fc_std=(2 * tw) ** -0.5,
-                               proj_std=(tw ** -0.5) * ((2 * cfg.transformer_layers) ** -0.5)),
-        "ln_final": _ln_init((tw,), dev),
-        "text_projection": _normal(gen, (tw, cfg.embed_dim), tw ** -0.5),
-    }
-    params = {"visual": visual, "text": text,
-              "logit_scale": torch.tensor(float(np.log(1 / 0.07)), device=dev)}
-    return _tree_map(lambda a: a.to(device=device, dtype=dtype), params)
+    params = {"visual": visual, "text": _init_text(gen, cfg), "logit_scale": _logit_scale(dev)}
+    return tree_map(lambda a: a.to(device=device, dtype=dtype), params)
+
+
+def init_text_params(gen: torch.Generator, cfg: CLIPConfig, dtype=torch.float32,
+                     device=None) -> dict:
+    """The text tower and ``logit_scale`` alone, as :func:`init_clip_params`
+    draws them (the ResNet backbones bring their own image tower)."""
+    params = {"text": _init_text(gen, cfg), "logit_scale": _logit_scale(gen.device)}
+    return tree_map(lambda a: a.to(device=device, dtype=dtype), params)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:

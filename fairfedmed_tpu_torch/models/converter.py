@@ -1,18 +1,20 @@
 """Parameters into the port's layout: from the JAX package's tree, and from
 an OpenAI CLIP checkpoint.
 
-The port keeps the JAX package's parameter tree (nested dicts, torch-
-convention ``[out, in]`` weights, layer-stacked blocks), so its frozen CLIP
-parameters, fetched to host as numpy arrays, convert leaf for leaf.  The
-trainable state crosses through the reference-keyed ``state_dict()`` /
-``load_state_dict()`` format that both trainers share.
+The port keeps the JAX package's parameter tree (nested dicts, lists of
+ResNet blocks, torch-convention ``[out, in]`` weights, layer-stacked
+transformer blocks), so its frozen CLIP parameters, fetched to host as numpy
+arrays, convert leaf for leaf.  The trainable state crosses through the
+reference-keyed ``state_dict()`` / ``load_state_dict()`` format that both
+trainers share.
 
 The checkpoint path is the port's own copy of the JAX package's
-``models/converter.py``: it infers the ViT architecture from the state dict's
-keys and shapes (clip/model.py:633-670) and stacks the blocks.  PyTorch reads
-the checkpoint itself (``torch.jit.load``, then ``torch.load``), as the
-reference does.  Nothing is downloaded: the machines that run the port have
-no network.
+``models/converter.py``: it infers the ViT or ResNet architecture from the
+state dict's keys and shapes (clip/model.py:633-670) and stacks the
+transformer blocks (``models/resnet_clip.py`` converts the ResNet tower).
+PyTorch reads the checkpoint itself (``torch.jit.load``, then
+``torch.load``), as the reference does.  Nothing is downloaded: the machines
+that run the port have no network.
 """
 
 from __future__ import annotations
@@ -24,15 +26,26 @@ import numpy as np
 import torch
 
 from .clip_model import CLIPConfig
+from .resnet_clip import ResNetConfig
+
+
+def _keeps_fp32(path: str) -> bool:
+    """``logit_scale`` and BatchNorm leaves (affine and running statistics,
+    under a ``bn*`` / ``*_bn`` node) stay fp32 whatever the storage type."""
+    return path == "logit_scale" or any(
+        part.startswith("bn") or part.endswith("_bn") for part in path.split("."))
 
 
 def params_from_numpy(tree, device, dtype=torch.float32):
-    """Nested dict of numpy arrays -> the same tree of tensors on ``device``
-    in ``dtype``; ``logit_scale`` stays fp32, as the loss math reads it."""
+    """Nested dicts and lists of numpy arrays -> the same tree of tensors on
+    ``device`` in ``dtype``; ``logit_scale`` and BatchNorm leaves stay fp32
+    (the loss math and the BatchNorm fp32 island read them)."""
     def conv(path, node):
         if isinstance(node, Mapping):
             return {k: conv(f"{path}.{k}" if path else str(k), v) for k, v in node.items()}
-        leaf_dtype = torch.float32 if path == "logit_scale" else dtype
+        if isinstance(node, (list, tuple)):
+            return [conv(f"{path}.{i}" if path else str(i), v) for i, v in enumerate(node)]
+        leaf_dtype = torch.float32 if _keeps_fp32(path) else dtype
         return torch.tensor(np.asarray(node, dtype=np.float32), device=device, dtype=leaf_dtype)
 
     return conv("", tree)
@@ -74,11 +87,39 @@ def load_torch_state_dict(path: str) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in sd.items() if isinstance(v, torch.Tensor)}
 
 
+def infer_rn_config(sd: dict):
+    """ModifiedResNet architecture from checkpoint shapes (clip/model.py:
+    643-656): layers, width, heads and resolution of any RN variant, and the
+    paired text tower.  Returns ``(ResNetConfig, CLIPConfig)``."""
+    counts = tuple(len(set(k.split(".")[2] for k in sd if k.startswith(f"visual.layer{b}")))
+                   for b in (1, 2, 3, 4))
+    vision_width = sd["visual.layer1.0.conv1.weight"].shape[0]
+    pos = sd["visual.attnpool.positional_embedding"].shape[0]
+    grid = int(round((pos - 1) ** 0.5))
+    if grid ** 2 + 1 != pos:
+        raise ValueError(f"attnpool positional embedding of {pos} rows is not a square grid + 1")
+    embed_dim = sd["text_projection"].shape[1]
+    transformer_width = sd["ln_final.weight"].shape[0]
+    rn_cfg = ResNetConfig(layers=counts, output_dim=embed_dim, heads=vision_width * 32 // 64,
+                          input_resolution=grid * 32, width=vision_width)
+    clip_cfg = CLIPConfig(
+        embed_dim=embed_dim,
+        image_resolution=grid * 32,
+        context_length=sd["positional_embedding"].shape[0],
+        vocab_size=sd["token_embedding.weight"].shape[0],
+        transformer_width=transformer_width,
+        transformer_heads=transformer_width // 64,
+        transformer_layers=len(set(
+            k.split(".")[2] for k in sd if k.startswith("transformer.resblocks"))),
+    )
+    return rn_cfg, clip_cfg
+
+
 def infer_config(sd: dict) -> CLIPConfig:
     """Architecture inference from checkpoint keys (clip/model.py:633-656),
-    ViT checkpoints only."""
+    ViT checkpoints; ResNet ones go through :func:`infer_rn_config`."""
     if "visual.proj" not in sd:
-        raise NotImplementedError("ResNet CLIP checkpoints are not ported yet (ROADMAP M13)")
+        raise NotImplementedError("a ResNet CLIP checkpoint: use infer_rn_config")
     vision_width = sd["visual.conv1.weight"].shape[0]
     vision_layers = len([k for k in sd if k.startswith("visual.") and k.endswith(".attn.in_proj_weight")])
     patch = sd["visual.conv1.weight"].shape[-1]

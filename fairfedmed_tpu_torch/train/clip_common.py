@@ -16,8 +16,9 @@ import torch.nn.functional as F
 
 from ..core.device import resolve_device
 from ..core.precision import Policy, policy_from_prec
-from ..models import converter
-from ..models.clip_model import PRESETS, CLIPConfig, init_clip_params
+from ..models import converter, resnet_clip
+from ..models.clip_model import (PRESETS, CLIPConfig, init_clip_params, init_text_params,
+                                 tree_map)
 
 TEST_PRESETS = {
     "test-vit": CLIPConfig(
@@ -32,6 +33,20 @@ TEST_PRESETS = {
     ),
 }
 
+RN_TEXT_CONFIGS = {
+    # the text towers paired with the ResNet image towers (clip/model.py:633-656)
+    "RN50": CLIPConfig(embed_dim=1024, transformer_width=512, transformer_heads=8,
+                       transformer_layers=12),
+    "RN101": CLIPConfig(embed_dim=512, transformer_width=512, transformer_heads=8,
+                        transformer_layers=12),
+    "RN50x4": CLIPConfig(embed_dim=640, image_resolution=288, transformer_width=640,
+                         transformer_heads=10, transformer_layers=12),
+    "RN50x16": CLIPConfig(embed_dim=768, image_resolution=384, transformer_width=768,
+                          transformer_heads=12, transformer_layers=12),
+    "test-rn": CLIPConfig(embed_dim=64, image_resolution=32, transformer_width=64,
+                          transformer_heads=4, transformer_layers=2),
+}
+
 
 @dataclasses.dataclass
 class CLIPBundle:
@@ -39,7 +54,41 @@ class CLIPBundle:
     clip_cfg: CLIPConfig
     policy: Policy
     pretrained: bool
-    backbone_type: str = "vit"
+    backbone_type: str = "vit"  # 'vit' | 'resnet'
+    rn_cfg: resnet_clip.ResNetConfig = None  # the ResNet image tower's shape
+    visual_bn: dict = None  # its BatchNorm affine tree (fp32)
+    visual_stats: dict = None  # its BatchNorm running statistics (fp32)
+
+
+def _load_resnet_bundle(cfg, name: str, policy: Policy, device) -> CLIPBundle:
+    ckpt = converter.find_checkpoint(name, cfg.DATASET.ROOT) \
+        if cfg.MODEL.BACKBONE.PRETRAINED and not name.startswith("test") else None
+    if ckpt is not None:
+        print(f"Loading CLIP (backbone: {name}) from {ckpt}")
+        sd = converter.load_torch_state_dict(ckpt)
+        rn_cfg, clip_cfg = converter.infer_rn_config(sd)
+        visual, bn, stats = resnet_clip.convert_resnet_visual(sd, rn_cfg)
+        text = converter.convert_text_tower(sd)
+        params = converter.params_from_numpy({"visual": visual, **text}, device,
+                                             policy.param_dtype)
+        bn, stats = (converter.params_from_numpy(t, device) for t in (bn, stats))
+        return CLIPBundle(params=params, clip_cfg=clip_cfg, policy=policy, pretrained=True,
+                          backbone_type="resnet", rn_cfg=rn_cfg, visual_bn=bn,
+                          visual_stats=stats)
+    rn_cfg, clip_cfg = resnet_clip.RN_PRESETS[name], RN_TEXT_CONFIGS[name]
+    if not name.startswith("test"):
+        print(f"WARNING: no checkpoint found for {name}; using random init "
+              f"(place the OpenAI {converter.checkpoint_name(name)} under DATASET.ROOT "
+              "to load pretrained weights)")
+    # drawn on the CPU: the same seed gives the same weights on every device
+    gen = torch.Generator().manual_seed(cfg.SEED if cfg.SEED >= 0 else 0)
+    visual, bn, stats = resnet_clip.init_modified_resnet(gen, rn_cfg)
+    params = init_text_params(gen, clip_cfg, dtype=policy.param_dtype, device=device)
+    params["visual"] = tree_map(lambda a: a.to(device, policy.param_dtype), visual)
+    params["logit_scale"] = params["logit_scale"].float()
+    bn, stats = (tree_map(lambda a: a.to(device), t) for t in (bn, stats))
+    return CLIPBundle(params=params, clip_cfg=clip_cfg, policy=policy, pretrained=False,
+                      backbone_type="resnet", rn_cfg=rn_cfg, visual_bn=bn, visual_stats=stats)
 
 
 def load_clip_bundle(cfg, prec: str, device=None) -> CLIPBundle:
@@ -47,13 +96,13 @@ def load_clip_bundle(cfg, prec: str, device=None) -> CLIPBundle:
     ``device`` (default ``cuda``): the OpenAI checkpoint when one is found
     under ``cfg.DATASET.ROOT`` (and ``MODEL.BACKBONE.PRETRAINED``), else
     randomly initialised from ``cfg.SEED`` (the same weights on every
-    device)."""
+    device).  ResNet bundles carry their BatchNorm affine parameters and
+    running statistics apart from ``params``, in fp32."""
     device = resolve_device(device)
     name = cfg.MODEL.BACKBONE.NAME
     policy = policy_from_prec(prec)
     if name.startswith("RN") or name == "test-rn":
-        raise NotImplementedError(f"ResNet CLIP backbones ({name}) are not ported yet "
-                                  "(ROADMAP M13)")
+        return _load_resnet_bundle(cfg, name, policy, device)
     if name in TEST_PRESETS:
         clip_cfg = TEST_PRESETS[name]
     else:

@@ -14,12 +14,15 @@ checkpoint converter.
   and initial trainable state.  The acc/AUC trajectories agree to atol 1e-6
   and the final per-client weights to atol 1e-5 (fp32 on both sides, sums
   in another order).  The FedOTPLinearFT (2 rounds) and local (1 round)
-  branches are held the same way;
+  branches are held the same way, and so are 2 rounds with the flags of
+  ``scripts/fairfedlora_fairfedmed_oct.sh`` (``test-vit`` on 3D OCT B-scans)
+  and ``scripts/fairfedlora_fairfedmed_rn50.sh`` (``test-rn``), 3 users;
 * the ViT converter on a small torch-keyed state dict: equal to the JAX
   package's, and the same after a file round trip.
 """
 
 import argparse
+import dataclasses
 import glob
 import os
 import subprocess
@@ -38,7 +41,9 @@ from fairfedmed_tpu import config as jconfig
 from fairfedmed_tpu.models import converter as jconv
 from fairfedmed_tpu_torch import config as tconfig
 from fairfedmed_tpu_torch import federated_main as tfm
+from fairfedmed_tpu_torch.models import clip_model as tclip
 from fairfedmed_tpu_torch.models import converter as tconv
+from fairfedmed_tpu_torch.models import resnet_clip as tresnet
 from fairfedmed_tpu_torch.train import clip_common as tcc
 from fairfedmed_tpu_torch.train import engine as tengine
 from fairfedmed_tpu_torch.train.trainers import glp_ot as tglp
@@ -190,27 +195,45 @@ def test_cli_runs_without_yaml_cv2_pandas_jax_tensorboard(fixture_root, tmp_path
             assert all(np.isfinite(z[k]).all() for k in z.files)
 
 
-def _frozen_numpy(jtr):
-    return jax.tree_util.tree_map(np.asarray, jtr.frozen)
+def _capture(jtr):
+    """What the port's trainer needs of a built JAX trainer: its frozen
+    parameters (and a ResNet's BatchNorm trees and shapes) as numpy, its
+    trainable state, and its parameter names and shapes."""
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    out = {"frozen": {k: v for k, v in to_np(jtr.frozen).items() if k != "visual_bn"},
+           "state": jtr.state_dict(), "clip_cfg": dataclasses.asdict(jtr.bundle.clip_cfg),
+           "named": {k: tuple(np.shape(v)) for k, v in jtr.named_parameters().items()}}
+    if jtr.bundle.backbone_type == "resnet":
+        out["resnet"] = dict(rn_cfg=dataclasses.asdict(jtr.bundle.rn_cfg),
+                             visual_bn=to_np(jtr.bundle.visual_bn), visual_stats=to_np(jtr.stats))
+    return out
 
 
-@pytest.mark.parametrize("model,rounds", [("FedOTPLoRA", 2), ("FedOTPLinearFT", 2),
-                                          ("local", 1)])
-def test_cli_matches_jax_cli(fixture_root, tmp_path, monkeypatch, restore_stdout, model, rounds):
-    """The sequential branches through both CLIs from the same weights."""
+def _port_bundle(captured):
+    kw = {}
+    if "resnet" in captured:
+        r = captured["resnet"]
+        kw = dict(backbone_type="resnet", rn_cfg=tresnet.ResNetConfig(**r["rn_cfg"]),
+                  visual_bn=tconv.params_from_numpy(r["visual_bn"], "cpu"),
+                  visual_stats=tconv.params_from_numpy(r["visual_stats"], "cpu"))
+    return tcc.CLIPBundle(params=tconv.params_from_numpy(captured["frozen"], "cpu"),
+                          clip_cfg=tclip.CLIPConfig(**captured["clip_cfg"]),
+                          policy=tcc.policy_from_prec("fp32"), pretrained=False, **kw)
+
+
+def _run_both_clis(monkeypatch, argv_for):
+    """Both CLIs on ``argv_for(name)``, the port's trainer built from the JAX
+    trainer's numbers.  Returns each CLI's per-round results."""
     captured = {}
     jbuild = jfm.build_trainer
 
     def jax_build(cfg):
         tr = jbuild(cfg)
-        captured["frozen"], captured["state"] = _frozen_numpy(tr), tr.state_dict()
-        captured["named"] = {k: tuple(np.shape(v)) for k, v in tr.named_parameters().items()}
+        captured.update(_capture(tr))
         return tr
 
     def port_build(cfg, dm=None, device=None):
-        bundle = tcc.CLIPBundle(params=tconv.params_from_numpy(captured["frozen"], "cpu"),
-                                clip_cfg=tcc.TEST_PRESETS["test-vit"],
-                                policy=tcc.policy_from_prec("fp32"), pretrained=False)
+        bundle = _port_bundle(captured)
         monkeypatch.setattr(tglp, "load_clip_bundle", lambda cfg_, prec, device_: bundle)
         tr = tengine.build_trainer(cfg, dm, device=device)
         tr.load_state_dict(captured["state"], strict=True)
@@ -222,26 +245,77 @@ def test_cli_matches_jax_cli(fixture_root, tmp_path, monkeypatch, restore_stdout
     monkeypatch.setattr(tfm, "build_trainer", port_build)
     outs = {}
     for name, cli, extra in (("jax", jfm, {}), ("port", tfm, {"device": "cpu"})):
-        argv = small_argv(fixture_root, tmp_path / name, rounds, extra=["--model", model])
         saved = sys.stdout
         try:
-            outs[name] = cli.main(cli.build_arg_parser().parse_args(argv), **extra)
+            outs[name] = cli.main(cli.build_arg_parser().parse_args(argv_for(name)), **extra)
         finally:
             sys.stdout = saved
+    return outs
+
+
+def _assert_runs_match(outs, out_dirs, rounds, with_auc, n_users):
     assert len(outs["port"]["acc"]) == len(outs["jax"]["acc"]) == rounds
-    assert len(outs["port"]["auc"]) == len(outs["jax"]["auc"]) == (0 if model == "local" else 2)
+    assert len(outs["port"]["auc"]) == len(outs["jax"]["auc"]) == (rounds if with_auc else 0)
     for key in ("acc", "auc"):
         np.testing.assert_allclose(outs["port"][key], outs["jax"][key], atol=1e-6, rtol=0)
-    # the same clients trained in each round (round 1 draws one of the two)
-    ckpts = sorted(os.listdir(tmp_path / "port" / "checkpoints"))
-    assert ckpts == sorted(os.listdir(tmp_path / "jax" / "checkpoints"))
-    assert len(ckpts) == {"local": 1}.get(model, 3), ckpts
-    for idx in (0, 1):
+    # the same clients trained in each round
+    ckpts = sorted(os.listdir(out_dirs["port"] / "checkpoints"))
+    assert ckpts == sorted(os.listdir(out_dirs["jax"] / "checkpoints"))
+    for idx in range(n_users):
         fname = f"global_client{idx}_final.npz"
-        with np.load(tmp_path / "port" / fname) as got, np.load(tmp_path / "jax" / fname) as want:
+        with np.load(out_dirs["port"] / fname) as got, np.load(out_dirs["jax"] / fname) as want:
             assert sorted(got.files) == sorted(want.files)
             for k in want.files:
                 np.testing.assert_allclose(got[k], want[k], atol=1e-5, rtol=0, err_msg=k)
+    return ckpts
+
+
+@pytest.mark.parametrize("model,rounds", [("FedOTPLoRA", 2), ("FedOTPLinearFT", 2),
+                                          ("local", 1)])
+def test_cli_matches_jax_cli(fixture_root, tmp_path, monkeypatch, restore_stdout, model, rounds):
+    """The sequential branches through both CLIs from the same weights."""
+    outs = _run_both_clis(monkeypatch, lambda name: small_argv(
+        fixture_root, tmp_path / name, rounds, extra=["--model", model]))
+    ckpts = _assert_runs_match(outs, {n: tmp_path / n for n in ("jax", "port")}, rounds,
+                               with_auc=model != "local", n_users=2)
+    assert len(ckpts) == {"local": 1}.get(model, 3), ckpts  # round 1 draws one of the two
+
+
+@pytest.fixture(scope="module")
+def launcher_root(tmp_path_factory):
+    """Three sites, as the launchers' --num_users 3 reads."""
+    root = tmp_path_factory.mktemp("ffm_launcher")
+    make_fairfedmed_fixture(str(root), n_sites=3, n_train=6, n_test=4, size=32)
+    return root
+
+
+@pytest.mark.parametrize("script,backbone", [("fairfedlora_fairfedmed_oct.sh", "test-vit"),
+                                             ("fairfedlora_fairfedmed_rn50.sh", "test-rn")])
+def test_cli_matches_jax_cli_on_launcher_flags(launcher_root, tmp_path, monkeypatch,
+                                               restore_stdout, script, backbone):
+    """The OCT (ViT, 3D B-scans) and RN50 launchers' flags, read from the
+    scripts, through both CLIs for 2 rounds on the small presets."""
+    import chip_smoke
+
+    flags = chip_smoke.script_flags(str(ROOT / "scripts" / script))
+
+    def argv_for(name):
+        argv = list(flags)
+        for flag, value in (("--root", str(launcher_root)), ("--output-dir", str(tmp_path / name)),
+                            ("--round", "2")):
+            argv[argv.index(flag) + 1] = value
+        return argv + ["--backbone", backbone, "INPUT.SIZE", "(32, 32)",
+                       "TRAINER.GLP_OT.PREC", "fp32"]
+
+    outs = _run_both_clis(monkeypatch, argv_for)
+    ckpts = _assert_runs_match(outs, {n: tmp_path / n for n in ("jax", "port")}, 2,
+                               with_auc=True, n_users=3)
+    assert len(ckpts) == 3 + 2, ckpts  # round 0 trains all 3, round 1 int(0.8 * 3)
+    with np.load(tmp_path / "port" / "global_client0_final.npz") as z:
+        if backbone == "test-vit":
+            assert z["proj_per_3d_slice.weight"].shape == (3, 16, 5, 5)
+        else:
+            assert any(k.endswith("running_var") for k in z.files)
 
 
 def test_unported_branches_raise(fixture_root, tmp_path, restore_stdout):
@@ -340,9 +414,10 @@ def test_vit_converter_matches_and_loads_from_a_file(tmp_path):
     bundle = tcc.load_clip_bundle(cfg, "fp32", device="cpu")
     assert bundle.pretrained and bundle.clip_cfg.__dict__ == want_cfg.__dict__
     _assert_trees_equal(bundle.params, want)
-    cfg.MODEL.BACKBONE.NAME = "RN50"
-    with pytest.raises(NotImplementedError, match="M13"):
-        tcc.load_clip_bundle(cfg, "fp32", device="cpu")
+    cfg.MODEL.BACKBONE.NAME = "test-rn"  # a ResNet name loads a ResNet bundle
+    bundle = tcc.load_clip_bundle(cfg, "fp32", device="cpu")
+    assert (bundle.backbone_type, bundle.rn_cfg, bundle.pretrained) == (
+        "resnet", tcc.resnet_clip.RN_PRESETS["test-rn"], False)
 
 
 def test_glob_finds_every_config():

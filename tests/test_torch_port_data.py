@@ -170,12 +170,38 @@ def test_index_sidecar_and_unported_paths(roots, monkeypatch):
     assert len(tds) == 10
     assert tffm.group_histogram(np.array([2, -1, 0, 2])) == jffm.group_histogram(
         np.array([2, -1, 0, 2])) == [1, 0, 2]
-    for modality, method in (("oct_bscans_3d", "load_item"), ("slo_fundus", "load_item_u8")):
-        ds = tffm.FairFedMedDataset(base, 1, "race", ATTRIBUTES, modality, 32, train=False)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            getattr(ds, method)(0)
+    ds = tffm.FairFedMedDataset(base, 1, "race", ATTRIBUTES, "slo_fundus", 32, train=False)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        ds.load_item_u8(0)
     with pytest.raises(NotImplementedError):
         tffm.FairFedMedDataset(base, 1, "race", ATTRIBUTES, "fundus_typo", 32)
+
+
+def test_oct_bscans_3d_matches_on_float_volumes(tmp_path):
+    """The whole volume as one channel, each voxel truncated through an
+    integer before the float32 cast: equal to the JAX package's on volumes
+    with fractional and negative voxels, where the truncation shows."""
+    base = make_fairfedmed_fixture(str(tmp_path), n_sites=1, n_train=3, n_test=2, size=32,
+                                   seed=9, oct_depth=8, oct_hw=12)
+    rng = np.random.default_rng(9)
+    all_dir = os.path.join(base, "all")
+    for n, fname in enumerate(sorted(os.listdir(all_dir))):
+        path = os.path.join(all_dir, fname)
+        with np.load(path) as z:
+            members = {k: z[k] for k in z.files}
+        members["oct_bscans"] = rng.uniform(-20, 260, (8, 12, 12)).astype(np.float32)
+        (np.savez_compressed if n % 2 else np.savez)(path, **members)
+    for train in (True, False):
+        jds, tds = _datasets(base, "oct_bscans_3d", train)
+        assert len(tds) == len(jds) > 0
+        for i in range(len(tds)):
+            (ti, tl, ta), (ji, jl, ja) = tds.load_item(i), jds.load_item(i)
+            assert ti.dtype == ji.dtype == np.float32 and ti.shape == ji.shape == (1, 8, 12, 12)
+            assert tl == jl
+            np.testing.assert_array_equal(ta, ja)
+            np.testing.assert_array_equal(ti, ji)
+        raw = np.load(os.path.join(all_dir, tds.data_files[0]))["oct_bscans"]
+        assert not np.array_equal(tds.load_item(0)[0][0], raw)  # the truncation ran
 
 
 # --------------------------------------------------------------------------- #
