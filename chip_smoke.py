@@ -60,6 +60,23 @@ Phases, each printing one JSON line:
    and COT, and the prompt-only GLP_OT (COT, ln_pre unfrozen), a few steps
    each; every plan valid, the solver's iterations and the time OT adds per
    step against OT None.
+7. The other CLI branches, through the CLI as in 5, on cli_path's SLO
+   fixture (2 of its sites, as the launchers' ``--num_users 2`` reads),
+   ViT-B/16 bf16.  The FedChexMimic launchers' flags are read from
+   ``scripts/fedchexmimic/``, with three changed, as each phase's line
+   says: ``--dataset-config-file configs/datasets/fairfedmed.yaml`` and
+   FairFedMed's ``--attributes`` / ``--attribute_type race`` (their own
+   dataset is not ported, and the fixture has no ``age``):
+   - ``promptfl_path``: ``promptfl_fedchexmimic.sh`` (fedavg, PromptFL),
+     2 rounds; then a profiled step;
+   - ``fedotp_path``: ``fedotp_fedchexmimic.sh`` (FedOTP, prompt-only
+     GLP_OT, COT, 2 prompts), 2 rounds, every plan valid;
+   - ``clip_path``: the PromptFL flags with ``--trainer CLIP``: one round
+     of zero-shot evaluation, no backward launch;
+   - ``fedprox_path``: the PromptFL flags with ``--model fedprox --mu 0.5``,
+     1 round; the proximal term is held in the loss (see the function).
+   Nothing in the image tower trains on these paths, so the backward runs
+   through the text blocks only.
 
 Every path zeroes the kernel launch counters just before it runs and reads
 them just after; the counts must equal what the layer structure implies.
@@ -114,6 +131,12 @@ SCRIPT = os.path.join(REPO, "scripts", "fairfedlora_fairfedmed.sh")
 OCT_SCRIPT = os.path.join(REPO, "scripts", "fairfedlora_fairfedmed_oct.sh")
 RN50_SCRIPT = os.path.join(REPO, "scripts", "fairfedlora_fairfedmed_rn50.sh")
 RN50_OCT_SCRIPT = os.path.join(REPO, "scripts", "fairfedlora_fairfedmed_oct_rn50.sh")
+PROMPTFL_SCRIPT = os.path.join(REPO, "scripts", "fedchexmimic", "promptfl_fedchexmimic.sh")
+FEDOTP_SCRIPT = os.path.join(REPO, "scripts", "fedchexmimic", "fedotp_fedchexmimic.sh")
+# the FedChexMimic launchers run on the FairFedMed SLO fixture: their own
+# dataset is not ported (ROADMAP M14), and the fixture has no ``age``
+FAIRFEDMED_FLAGS = (("--dataset-config-file", "configs/datasets/fairfedmed.yaml"),
+                    ("--attributes", *ATTRIBUTES), ("--attribute_type", "race"))
 CLI_SITES, CLI_TRAIN, CLI_TEST = 3, 64, 100
 # a FairFedMed OCT member: 128 B-scans of 200x200 uint8 (dataset.md:13-14);
 # one full training batch of 32 volumes per site, 8 test volumes (the test
@@ -194,6 +217,9 @@ KERNEL_SHAPES = {  # name: (n = batch*heads, L, dh, causal)
     "vision_eval_oct": (200 * 12, 197, 64, False),
     "text_16": (32, 16, 64, True),
     "text_77": (32, 77, 64, True),
+    # PromptFL / CLIP: 1 prompt x 2 classes x 8 heads, "X X X X NOT
+    # Glaucoma." cut after its EOT at 10 tokens, rounded up to 16
+    "text_promptfl": (16, 16, 64, True),
 }
 
 
@@ -555,14 +581,19 @@ def main_path(dev):
 
 def script_flags(path=SCRIPT) -> list:
     """The ``federated_main.py`` flags of a launcher script, with its shell
-    variables substituted (``${VAR:-default}`` takes the default) and the
-    ``$(...)``-valued ones (the parallel-clients switch) dropped."""
+    variables substituted (``${VAR:-default}`` takes the default, in an
+    assignment or inline) and the ``$(...)``-valued ones (the
+    parallel-clients switch) dropped."""
     with open(path) as f:
         text = f.read()
     env = {}
 
     def subst(token):
-        return re.sub(r"\$\{(\w+)\}", lambda v: env[v.group(1)], token)
+        def value(m):
+            name, default = m.group(1), m.group(2)
+            return env[name] if name in env or default is None else default
+
+        return re.sub(r"\$\{(\w+)(?::-([^}]*))?\}", value, token)
 
     for name, value in re.findall(r"^(\w+)=(.*)$", text, re.M):
         if value.startswith("$("):
@@ -647,23 +678,38 @@ def time_h2d(batch_img, dev, iters=10):
             "h2d_pinned_gb_per_s": nbytes / statistics.median(pinned_ms) / 1e6}
 
 
-def run_cli(script, data_root, out_dir, rounds, dev):
+def set_flag(argv, flag, *values) -> list:
+    """``argv`` with the value tokens of ``flag`` replaced by ``values``
+    (the flag and values appended when ``flag`` is absent)."""
+    if flag not in argv:
+        return argv + [flag, *values]
+    i = argv.index(flag)
+    j = i + 1
+    while j < len(argv) and not argv[j].startswith("--"):
+        j += 1
+    return argv[:i + 1] + list(values) + argv[j:]
+
+
+def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None):
     """``fairfedmed_tpu_torch.federated_main.main`` with the flags of a
     launcher script (the real config files, batch 32 / 100), except
-    ``--root`` and ``--output-dir`` (under ``build/``), ``--round`` and no
-    ``--parallel_clients``.  The kernel counters are zeroed just before and
-    read just after; the expected counts come from the batches of the
-    clients that the log shows were trained and of every client's
-    evaluation.  Returns what the path's checks read."""
+    ``--root`` and ``--output-dir`` (under ``build/``), ``--round``, no
+    ``--parallel_clients``, and ``overrides`` (``(flag, value, ...)``
+    tuples).  The kernel counters are zeroed just before and read just
+    after; the expected counts come from the batches of the clients that the
+    log shows were trained and evaluated.  ``on_build(trainer)`` runs once
+    the CLI has built its trainer.  Returns what the path's checks read."""
     from fairfedmed_tpu_torch import federated_main as fm
 
     shutil.rmtree(out_dir, ignore_errors=True)
     argv = script_flags(script)
-    for flag, value in (("--root", data_root), ("--output-dir", out_dir),
-                        ("--round", str(rounds)), ("--config-file", None),
-                        ("--dataset-config-file", None)):
+    for flag, value in (("--root", data_root), ("--output-dir", out_dir), ("--round", str(rounds))):
+        argv = set_flag(argv, flag, value)
+    for flag, *values in overrides:
+        argv = set_flag(argv, flag, *values)
+    for flag in ("--config-file", "--dataset-config-file"):  # config paths from the repo
         i = argv.index(flag)
-        argv[i + 1] = value or os.path.join(REPO, argv[i + 1])  # config paths from the repo
+        argv[i + 1] = os.path.join(REPO, argv[i + 1])
     args = fm.build_arg_parser().parse_args(argv)
 
     steps, epochs, holder = [], [], {}
@@ -688,6 +734,8 @@ def run_cli(script, data_root, out_dir, rounds, dev):
                            "batches": trainer.data_time.count})
 
         trainer.forward_backward, trainer.run_epoch = timed_step, recorded_epoch
+        if on_build is not None:
+            on_build(trainer)
         return trainer
 
     fm.build_trainer = recording_build
@@ -723,18 +771,24 @@ def run_cli(script, data_root, out_dir, rounds, dev):
     trained = {}  # round -> clients, from "Save checkpoint to .../epoch{r}_client{i}.npz"
     for r, c in re.findall(r"Save checkpoint to .*epoch(\d+)_client(\d+)\.npz", log):
         trained.setdefault(int(r), []).append(int(c))
+    evaluated = [int(c) for c in re.findall(r"Evaluate on the client(\d+)_test set", log)]
     n_train = sum(len(trainer.fed_train_loader_x_dict[c]) for cs in trained.values() for c in cs)
-    n_eval = len(result["acc"]) * sum(len(trainer.fed_test_loader_x_dict[c])
-                                      for c in range(CLI_SITES))
-    # every batch runs each text block (and each ViT block) once; the
-    # backward reaches every text block and the ViT blocks from the first
-    # whose input carries a gradient: block 1 when only the adapters train,
-    # block 0 when the slice projector (or a trainable ln_pre) sits before it
+    n_eval = sum(len(trainer.fed_test_loader_x_dict[c]) for c in evaluated)
+    # every batch runs each text block (and each ViT block) once.  The
+    # backward reaches every text block (the prompt context sits before
+    # block 0) and the ViT blocks from the first whose input carries a
+    # gradient: block 1 when only adapters train, block 0 when the slice
+    # projector (or a trainable ln_pre) sits before it, none when nothing in
+    # the image tower trains (PromptFL, GLP_OT with a frozen image encoder)
     clip = trainer.bundle.clip_cfg
     t = clip.transformer_layers
+    trainable = trainer.trainable
     if trainer.backbone_type == "vit":
         v = clip.vision_layers
-        v_bwd = v if (trainer.is_3d_input or "visual_ln_pre" in trainer.trainable) else v - 1
+        if getattr(trainer, "is_3d_input", False) or "visual_ln_pre" in trainable:
+            v_bwd = v
+        else:
+            v_bwd = v - 1 if "image_encoder_lora" in trainable else 0
         width, layers = [clip.vision_width, clip.transformer_width], [v, t]
     else:  # the ResNet tower runs no attention kernel
         rn = trainer.bundle.rn_cfg
@@ -743,19 +797,27 @@ def run_cli(script, data_root, out_dir, rounds, dev):
     expected = {"attention_fwd": (n_train + n_eval) * (v + t),
                 "attention_bwd": n_train * (v_bwd + t)}
     finals = {}
-    for idx in range(CLI_SITES):
+    for idx in range(args.num_users):
         with np.load(os.path.join(out_dir, f"global_client{idx}_final.npz")) as z:
             finals[idx] = {k: z[k] for k in z.files}
     cum = result["time"]
+
+    def median(xs):
+        xs = list(xs)
+        return statistics.median(xs) if xs else None
+
     res = {"entry": "fairfedmed_tpu_torch.federated_main.main", "argv": argv,
            "model": trainer.cfg.MODEL.BACKBONE.NAME, "backbone_type": trainer.backbone_type,
            "modality": trainer.cfg.DATASET.MODALITY_TYPE, "width": width, "layers": layers,
-           "prec": trainer.cfg.TRAINER.GLP_OT.PREC, "device": str(trainer.device),
-           "main_s": main_s, "round_s": [cum[0]] + [b - a for a, b in zip(cum, cum[1:])],
-           "trained_clients": trained, "train_batches": n_train, "eval_batches": n_eval,
-           "steps": steps, "step_ms_median": statistics.median(s["ms"] for s in steps),
+           "aggregation": args.model, "trainer": args.trainer,
+           "prec": trainer.cfg.TRAINER[getattr(trainer, "prec_node", "GLP_OT")].PREC,
+           "device": str(trainer.device), "main_s": main_s,
+           "round_s": [cum[0]] + [b - a for a, b in zip(cum, cum[1:])],
+           "trained_clients": trained, "evaluated_clients": evaluated,
+           "train_batches": n_train, "eval_batches": n_eval,
+           "steps": steps, "step_ms_median": median(s["ms"] for s in steps),
            "epochs": epochs,
-           "data_ms_per_batch_median": statistics.median(e["data_ms_per_batch"] for e in epochs),
+           "data_ms_per_batch_median": median(e["data_ms_per_batch"] for e in epochs),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "acc": result["acc"], "auc": result["auc"],
            "final_npz_finite": {i: len(z) > 0 and all(np.isfinite(a).all() for a in z.values())
@@ -765,16 +827,23 @@ def run_cli(script, data_root, out_dir, rounds, dev):
     return res, finals, trainer
 
 
-def check_cli_run(res, rounds):
-    """What every CLI path must show: the clients each round trains, finite
-    losses and metrics, finite final weights, the expected launches."""
+def check_cli_run(res, rounds, trained_per_round=None, with_auc=True):
+    """What every CLI path must show: how many clients each round trains
+    (all of them in round 0; by default the FairLoRA launchers' 3 and then
+    int(0.8 * 3)), finite losses and metrics (an AUC per round where the
+    branch reports one), finite final weights, the expected launches."""
+    if trained_per_round is None:
+        trained_per_round = (CLI_SITES, int(0.8 * CLI_SITES))[:rounds]
     trained = res["trained_clients"]
-    want = {0: list(range(CLI_SITES)), 1: int(0.8 * CLI_SITES)}
-    if trained.get(0) != want[0] or (rounds > 1 and len(trained.get(1, [])) != want[1]):
+    counts = tuple(len(trained.get(r, [])) for r in range(len(trained_per_round)))
+    if counts != tuple(trained_per_round) or len(trained) != len(trained_per_round) or (
+            trained and sorted(trained[0]) != list(range(trained_per_round[0]))):
         raise AssertionError(f"unexpected clients trained: {trained}")
-    if not res["steps"] or not all(np.isfinite(s["loss"]) for s in res["steps"]):
+    if trained_per_round and (not res["steps"]
+                              or not all(np.isfinite(s["loss"]) for s in res["steps"])):
         raise AssertionError(f"non-finite or missing losses: {res['steps']}")
-    if len(res["acc"]) != rounds or not np.isfinite(res["acc"] + res["auc"]).all():
+    if len(res["acc"]) != rounds or len(res["auc"]) != (rounds if with_auc else 0) \
+            or not np.isfinite(res["acc"] + res["auc"]).all():
         raise AssertionError(f"non-finite or missing metrics: {res['acc']} {res['auc']}")
     if not all(res["final_npz_finite"].values()):
         raise AssertionError(f"final weights missing or not finite: {res['final_npz_finite']}")
@@ -982,7 +1051,112 @@ def profile_step(trainer, batch, step_ms, phase="main_path_profile"):
             "top_kernels_ms": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]}
 
 
-PATHS = ("main_path", "cli_path", "oct_path", "rn50_path", "rn50_oct_path", "ot_path")
+def _check_ctx(finals, n_prompts, trainer):
+    """Every client's final prompt context is [n_prompts, 4 (--n_ctx), text
+    width]."""
+    shapes = {i: z["prompt_learner.ctx"].shape for i, z in finals.items()}
+    if set(shapes.values()) != {(n_prompts, 4, trainer.bundle.clip_cfg.transformer_width)}:
+        raise AssertionError(f"final prompt contexts: {shapes}")
+
+
+def _branch_path(phase, script, rounds, dev, overrides=(), on_build=None):
+    out_dir = os.path.join(REPO, "build", f"chip_smoke_{phase}")
+    res, finals, trainer = run_cli(script, SLO_ROOT, out_dir, rounds, dev,
+                                   FAIRFEDMED_FLAGS + tuple(overrides), on_build)
+    changed = [list(f) for f in FAIRFEDMED_FLAGS + tuple(overrides)]
+    return {"phase": phase, "changed_flags": changed, **res}, finals, trainer
+
+
+def promptfl_path(dev):
+    """scripts/fedchexmimic/promptfl_fedchexmimic.sh (fedavg, PromptFL,
+    ViT-B/16) on cli_path's SLO fixture, 2 rounds; then a profiled step."""
+    res, finals, trainer = _branch_path("promptfl_path", PROMPTFL_SCRIPT, 2, dev)
+    emit(res)
+    check_cli_run(res, 2, (2, 2), with_auc=False)
+    _check_ctx(finals, 1, trainer)
+    emit(profile_step(trainer, next(iter(trainer.fed_train_loader_x_dict[0])),
+                      res["step_ms_median"], "promptfl_path_profile"))
+    return res["launches"]
+
+
+def fedotp_path(dev):
+    """scripts/fedchexmimic/fedotp_fedchexmimic.sh (FedOTP, prompt-only
+    GLP_OT, COT, 2 prompts) on cli_path's SLO fixture, 2 rounds: every plan
+    valid (a finite loss on every step), an AUC per round."""
+    res, finals, trainer = _branch_path("fedotp_path", FEDOTP_SCRIPT, 2, dev)
+    res["ot_iterations_last_step"] = int(trainer.ot_iterations)
+    emit(res)
+    check_cli_run(res, 2, (2, 2), with_auc=True)
+    _check_ctx(finals, 2, trainer)
+    return res["launches"]
+
+
+def clip_path(dev):
+    """The PromptFL launcher's flags with ``--trainer CLIP``: zero-shot
+    evaluation of both clients, one round, no backward."""
+    res, finals, trainer = _branch_path("clip_path", PROMPTFL_SCRIPT, 1, dev,
+                                        [("--trainer", "CLIP")])
+    emit(res)
+    check_cli_run(res, 1, (), with_auc=False)
+    if res["launches"]["attention_bwd"] != 0 or sorted(res["evaluated_clients"]) != [0, 1]:
+        raise AssertionError(f"CLIP ran a backward or missed a client: {res}")
+    _check_ctx(finals, 1, trainer)
+    return res["launches"]
+
+
+def fedprox_path(dev):
+    """The PromptFL launcher's flags with ``--model fedprox --mu 0.5``, one
+    round.  Each step's loss, its plain CE and the proximal term
+    ``(mu / 2) * ||ctx - ctx_global||^2`` are kept on the device and read
+    after the round: the term is 0 on each client's first step (the client
+    starts at the global context) and positive after; the loss is CE + term
+    to fp32 rounding; the reported loss is never below the CE and exceeds
+    it on every step whose term is above the rounding (two units in the
+    last place of the CE), of which there must be one.  At lr 0.001 the
+    term can be smaller than that."""
+    from fairfedmed_tpu_torch.train.clip_common import cross_entropy, fedprox_term
+
+    records = []
+
+    def on_build(trainer):
+        loss_fn = trainer._loss
+
+        def recording_loss(logits, label):
+            loss = loss_fn(logits, label)
+            ctx_global = trainer._fedprox_ctx_global if trainer.fedprox else None
+            term = (torch.zeros((), device=loss.device) if ctx_global is None
+                    else fedprox_term(trainer.ctx, ctx_global, trainer.mu))
+            records.append(torch.stack([loss.detach().float(),
+                                        cross_entropy(logits, label).detach(), term.float()]))
+            return loss
+
+        trainer._loss = recording_loss
+
+    res, finals, trainer = _branch_path("fedprox_path", PROMPTFL_SCRIPT, 1, dev,
+                                        [("--model", "fedprox"), ("--mu", "0.5")], on_build)
+    rec = torch.stack(records).cpu().numpy()  # fp32 [steps, (loss, ce, term)]
+    ulp = np.spacing(rec[:, 1]).astype(np.float64)
+    rec = rec.astype(np.float64)
+    reported = np.array([s["loss"] for s in res["steps"]])
+    first = np.cumsum([0] + [e["batches"] for e in res["epochs"]])[:-1]  # each client's first step
+    later = np.setdiff1d(np.arange(len(rec)), first)
+    visible = rec[:, 2] > 2 * ulp
+    res.update(loss_ce_term=rec.tolist(), reported_minus_ce=(reported - rec[:, 1]).tolist(),
+               term_above_rounding=visible.tolist())
+    emit(res)
+    check_cli_run(res, 1, (2,), with_auc=False)
+    _check_ctx(finals, 1, trainer)
+    if not (len(rec) == len(reported) and len(later) > 0 and np.all(rec[first, 2] == 0)
+            and np.all(rec[later, 2] > 0)
+            and np.all(np.abs(rec[:, 0] - (rec[:, 1] + rec[:, 2])) <= 2 * ulp)
+            and np.all(reported >= rec[:, 1]) and visible.any()
+            and np.all(reported[visible] > rec[visible, 1])):
+        raise AssertionError(f"the FedProx term is missing from the loss: {rec.tolist()}")
+    return res["launches"]
+
+
+PATHS = ("main_path", "cli_path", "oct_path", "rn50_path", "rn50_oct_path", "ot_path",
+         "promptfl_path", "fedotp_path", "clip_path", "fedprox_path")
 
 
 def kernels_line(rows, launches):
@@ -1042,11 +1216,9 @@ def main():
     emit({"phase": "kernel_checks", "rows": rows})
     emit(small_reference(dev))
     launches = {}
-    for name, path in (("main_path", main_path), ("cli_path", cli_path),
-                       ("oct_path", oct_path), ("rn50_path", rn50_path),
-                       ("rn50_oct_path", rn50_oct_path), ("ot_path", ot_path)):
+    for name in PATHS:
         t0 = time.perf_counter()
-        launches[name] = path(dev)
+        launches[name] = globals()[name](dev)
         emit({"phase": f"{name}_done", "s": time.perf_counter() - t0})
     emit(kernels_line(rows, launches))
     emit({"phase": "total", "s": time.perf_counter() - t_start})

@@ -10,10 +10,13 @@ flag.
 
 One process simulates server and clients: each round loads per-client
 weights into the shared trainer, runs the local epochs, harvests the
-trainable state and aggregates.  The sequential branches that run on the
-port's trainer are here: FedOTPLoRA (FairLoRA with group singular values and
-EMA), FedOTPLinearFT and local.  The flags, their defaults and the printed
-lines are the JAX CLI's.
+trainable state and aggregates.  Every sequential branch of the JAX CLI is
+here: CLIP zero-shot evaluation, fedavg, fedprox, PromptFL/FedOTP (global
+prompt rows averaged, local rows kept per client), FedOTPLoRA (FairLoRA
+with group singular values and EMA), FedOTPLinearFT and local.  The
+client-parallel rounds (``--parallel_clients``) and the ``Baseline`` trainer
+are not ported and raise.  The flags, their defaults and the printed lines
+are the JAX CLI's.
 
 ``main`` runs on ``cuda`` and raises when no GPU is present; the override
 ``USE_CUDA False`` (or ``main(args, device="cpu")``) runs the plain PyTorch
@@ -39,7 +42,8 @@ from .train.engine import build_trainer
 from .utils.logger import setup_logger
 from .utils.tools import count_parameters, set_random_seed
 
-SEQUENTIAL_MODELS = ("FedOTPLoRA", "FedOTPLinearFT", "local")
+SEQUENTIAL_MODELS = ("fedavg", "fedprox", "PromptFL", "FedOTP", "FedOTPLoRA", "FedOTPLinearFT",
+                     "local")
 
 
 def extend_cfg(cfg, args):
@@ -182,11 +186,11 @@ def print_args(args, cfg):
 
 def _check_ported(args, cfg):
     """Refuse up front what the port cannot run yet, naming the ROADMAP item."""
-    if args.trainer == "CLIP" or args.model in ("fedavg", "fedprox", "PromptFL", "FedOTP"):
-        raise NotImplementedError(
-            f"--model {args.model} --trainer {args.trainer} is not ported yet (ROADMAP M12: "
-            "the PromptFL and CLIP trainers)")
-    if args.model not in SEQUENTIAL_MODELS:
+    if args.trainer == "Baseline":
+        raise NotImplementedError("--trainer Baseline is not ported yet (ROADMAP M17: "
+                                  "models/backbones.py)")
+    # the CLIP branch evaluates under any --model, as the JAX CLI's loop does
+    if args.trainer != "CLIP" and args.model not in SEQUENTIAL_MODELS:
         raise NotImplementedError(f"Unknown aggregation model: {args.model}")
     if cfg.TRAIN.PARALLEL_CLIENTS:
         raise NotImplementedError("--parallel_clients is not ported yet (ROADMAP M16)")
@@ -229,15 +233,16 @@ def main(args, device=None):
 
     datanumber_client = []
     datanumber_client_by_attr = [] if not cfg.TRAINER.GLP_OT_LORA.DISABLE_ATTR else None
-    for net_i in range(cfg.DATASET.USERS):
-        ds = local_trainer.fed_train_loader_x_dict[net_i].dataset
-        datanumber_client.append(len(ds))
-        if datanumber_client_by_attr is not None:
-            if hasattr(ds, "count_by_attribute") and cfg.DATASET.NAME in ("FairFedMed",
-                                                                          "FedChexMimic"):
-                datanumber_client_by_attr.append(ds.count_by_attribute(args.attribute_type))
-            else:
-                datanumber_client_by_attr = None
+    if args.trainer != "CLIP":  # CLIP trains nothing and aggregates nothing
+        for net_i in range(cfg.DATASET.USERS):
+            ds = local_trainer.fed_train_loader_x_dict[net_i].dataset
+            datanumber_client.append(len(ds))
+            if datanumber_client_by_attr is not None:
+                if hasattr(ds, "count_by_attribute") and cfg.DATASET.NAME in ("FairFedMed",
+                                                                              "FedChexMimic"):
+                    datanumber_client_by_attr.append(ds.count_by_attribute(args.attribute_type))
+                else:
+                    datanumber_client_by_attr = None
     if datanumber_client_by_attr:
         # clients missing the highest group id give shorter histograms: pad
         # to a common length so the group-weighted average stays rectangular
@@ -264,7 +269,77 @@ def main(args, device=None):
         _report_split_client(cfg, args, epoch, [r[0] for r in results])
 
     for epoch in range(max_epoch):
-        if args.model == "FedOTPLoRA":
+        if args.trainer == "CLIP":
+            # zero-shot evaluation, one round (federated_main.py:223-267)
+            print("------------local test start-------------")
+            m = max(int(args.frac * args.num_users), 1)
+            idxs_users = np.random.choice(range(args.num_users), m, replace=False)
+            results = []
+            for idx in idxs_users:
+                local_trainer.load_state_dict(global_weights)
+                results.append(local_trainer.test(idx=int(idx), current_epoch=epoch))
+            summarize(results, epoch, with_auc=False)
+            print("------------local test finish-------------")
+            break
+
+        elif args.model in ("fedavg", "fedprox"):
+            # FedAvg over the whole trainable state; fedprox adds the proximal
+            # term towards the round's global weights and evaluates only the
+            # round's users (federated_main.py:269-382)
+            fedprox = args.model == "fedprox"
+            m = max(int(args.frac * args.num_users), 1)
+            idxs_users = np.random.choice(range(args.num_users), m, replace=False)
+            print("idxs_users", idxs_users)
+            print("------------local train start epoch:", epoch, "-------------")
+            for idx in idxs_users:
+                local_trainer.load_state_dict(global_weights, strict=False)
+                local_trainer.train(idx=int(idx), global_epoch=epoch, is_fed=True,
+                                    global_weight=global_weights if fedprox else None,
+                                    fedprox=fedprox, mu=args.mu)
+                local_weights[idx] = copy.deepcopy(local_trainer.state_dict())
+            print("------------local train finish epoch:", epoch, "-------------")
+            global_weights = average_weights(local_weights, list(idxs_users), datanumber_client)
+            print("------------local test start-------------")
+            results = []
+            for idx in (idxs_users if fedprox else range(cfg.DATASET.USERS)):
+                local_trainer.load_state_dict(global_weights, strict=False)
+                results.append(local_trainer.test(idx=int(idx), current_epoch=epoch))
+            summarize(results, epoch, with_auc=False)
+
+        elif args.model in ("PromptFL", "FedOTP"):
+            # the first avg_prompt prompt rows averaged, the rest kept per
+            # client (federated_main.py:384-485)
+            if epoch == 0:
+                idxs_users = list(range(cfg.DATASET.USERS))
+            else:
+                m = max(int(args.frac * args.num_users), 1)
+                idxs_users = list(np.random.choice(range(args.num_users), m, replace=False))
+            print("idxs_users", idxs_users)
+            print("------------local train start epoch:", epoch, "-------------")
+            for idx in idxs_users:
+                if epoch == 0:
+                    local_trainer.load_state_dict(global_weights, strict=False)
+                else:
+                    local_trainer.load_state_dict(local_weights_per[idx], strict=False)
+                local_trainer.train(idx=int(idx), global_epoch=epoch, is_fed=True)
+                ctx = local_trainer.state_dict()["prompt_learner.ctx"]
+                local_weights_0[idx] = ctx[:args.avg_prompt].copy()
+                local_weights_1[idx] = ctx[args.avg_prompt:args.num_prompt].copy()
+            print("------------local train finish epoch:", epoch, "-------------")
+            global_prompt = average_weights(local_weights_0, idxs_users, datanumber_client,
+                                            islist=True)
+            print("------------local test start-------------")
+            results = []
+            for idx in range(cfg.DATASET.USERS):
+                local_weights_per[idx]["prompt_learner.ctx"] = np.concatenate(
+                    [global_prompt, local_weights_1[idx]], axis=0
+                ) if len(local_weights_1[idx]) else global_prompt
+            for idx in range(cfg.DATASET.USERS):
+                local_trainer.load_state_dict(local_weights_per[idx], strict=False)
+                results.append(local_trainer.test(idx=idx, current_epoch=epoch))
+            summarize(results, epoch)
+
+        elif args.model == "FedOTPLoRA":
             # FairLoRA: global+local prompts, LoRA on the image encoder, EMA
             # aggregation with group-weighted lora_S (federated_main.py:604-726)
             idxs_users = _pick_users(args, epoch)
@@ -380,8 +455,9 @@ def main(args, device=None):
 def _summarize(results, start, time_list, acc_list, err_list, f1_list, auc_list,
                epoch_list, epoch, with_auc=True):
     """Per-round metric block.  ``with_auc`` mirrors the reference's
-    per-branch reporting: FedOTPLinearFT and FedOTPLoRA print the AUC line,
-    local does not (federated_main.py:579, :702)."""
+    per-branch reporting: PromptFL/FedOTP, FedOTPLinearFT and FedOTPLoRA
+    print the AUC line; fedavg, fedprox, local and CLIP do not
+    (federated_main.py:462, :579, :702)."""
     accs = [r[0] for r in results]
     errs = [r[1] for r in results]
     f1s = [r[2] for r in results]

@@ -31,15 +31,19 @@ from .resnet_clip import ResNetConfig
 
 def _keeps_fp32(path: str) -> bool:
     """``logit_scale`` and BatchNorm leaves (affine and running statistics,
-    under a ``bn*`` / ``*_bn`` node) stay fp32 whatever the storage type."""
+    under a ``bn*`` / ``*_bn`` / ``*_stats`` node) stay fp32 whatever the
+    storage type."""
     return path == "logit_scale" or any(
-        part.startswith("bn") or part.endswith("_bn") for part in path.split("."))
+        part.startswith("bn") or part.endswith(("_bn", "_stats")) for part in path.split("."))
 
 
 def params_from_numpy(tree, device, dtype=torch.float32):
     """Nested dicts and lists of numpy arrays -> the same tree of tensors on
     ``device`` in ``dtype``; ``logit_scale`` and BatchNorm leaves stay fp32
-    (the loss math and the BatchNorm fp32 island read them)."""
+    (the loss math and the BatchNorm fp32 island read them).  A JAX
+    PromptFL/CLIP trainer's frozen tree, which carries a ResNet's BatchNorm
+    trees as ``visual_bn`` / ``visual_stats`` beside ``visual``, converts in
+    one call."""
     def conv(path, node):
         if isinstance(node, Mapping):
             return {k: conv(f"{path}.{k}" if path else str(k), v) for k, v in node.items()}

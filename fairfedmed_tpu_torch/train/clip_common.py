@@ -153,5 +153,16 @@ def fairness_confidence_loss(logits, labels, attr, num_groups: int,
     return loss if differentiable else loss.detach()
 
 
+def fedprox_term(ctx, ctx_global, mu: float, differentiable: bool = False) -> torch.Tensor:
+    """FedProx proximal term ``(mu / 2) * ||ctx - ctx_global||^2`` in fp32
+    (promptfl.py:290-293).  The reference builds it from ``state_dict()``
+    tensors, which torch detaches, so by default it adds to the reported
+    loss and not to the gradient; ``differentiable=True`` gives the intended
+    pull towards the global context."""
+    diff = ctx.float() - ctx_global
+    term = (mu / 2.0) * (diff * diff).sum()
+    return term if differentiable else term.detach()
+
+
 def accuracy_from_logits(logits, labels) -> torch.Tensor:
     return (logits.argmax(-1) == labels).float().mean() * 100.0

@@ -24,6 +24,7 @@ import time
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from ..core.device import resolve_device
 from ..data.manager import DataManager, prefetch_to_device
@@ -31,6 +32,7 @@ from ..evaluation.evaluator import build_evaluator
 from ..utils.meters import AverageMeter, MetricMeter
 from ..utils.registry import TRAINER_REGISTRY
 from ..utils.tools import mkdir_if_missing
+from .clip_common import fedprox_term
 from .optim import LRSchedule, set_learning_rate
 
 
@@ -51,6 +53,9 @@ class TrainerBase:
         self.epoch = 0
         self.start_epoch = 0
         self.max_epoch = 0
+        self.fedprox = False  # FedProx proximal term on (train(fedprox=True))
+        self.mu = 0.5
+        self._fedprox_ctx_global = None  # the round's global prompt context
 
     # -- tensorboard -------------------------------------------------------
     def init_writer(self, log_dir):
@@ -72,10 +77,17 @@ class TrainerBase:
         if self._writer is not None:
             self._writer.add_scalar(tag, value, step)
 
-    def train(self, idx=-1, global_epoch=0, is_fed=False, is_last_client=False):
+    def train(self, idx=-1, global_epoch=0, is_fed=False, is_last_client=False,
+              global_weight=None, fedprox=False, mu=0.5):
         """Run MAX_EPOCH local epochs for client ``idx`` (TrainerBase.train,
-        trainer.py:281-291)."""
+        trainer.py:281-291).  With ``fedprox`` the trainer's loss adds the
+        proximal term ``(mu / 2) * ||ctx - ctx_global||^2`` towards the
+        prompt context of ``global_weight``."""
         self.set_model_mode("train")
+        self.fedprox = fedprox
+        self.mu = mu
+        if fedprox and global_weight is not None and hasattr(self, "set_fedprox_global"):
+            self.set_fedprox_global(global_weight)
         for self.epoch in range(self.start_epoch, self.max_epoch):
             self.before_epoch()
             self.run_epoch(idx, global_epoch)
@@ -143,6 +155,26 @@ class SimpleTrainer(TrainerBase):
 
     def build_model(self):
         raise NotImplementedError
+
+    def _to_device(self, x):
+        """A batch array (numpy, or a tensor from ``prefetch_to_device``) on
+        the trainer's device."""
+        return torch.as_tensor(x).to(self.device, non_blocking=True)
+
+    # -- FedProx -----------------------------------------------------------
+    def set_fedprox_global(self, state):
+        self._fedprox_ctx_global = torch.tensor(np.asarray(state["prompt_learner.ctx"]),
+                                                dtype=torch.float32, device=self.device)
+
+    def with_fedprox(self, loss, ctx):
+        """``loss`` plus the FedProx proximal term towards the round's global
+        context when this client trains under FedProx (``train(fedprox=True)``),
+        detached unless ``TRAINER.DIFFERENTIABLE_FEDPROX``."""
+        if not self.fedprox or self._fedprox_ctx_global is None:
+            return loss
+        differentiable = bool(getattr(self.cfg.TRAINER, "DIFFERENTIABLE_FEDPROX", False))
+        return loss + fedprox_term(ctx, self._fedprox_ctx_global, self.mu,
+                                   differentiable=differentiable)
 
     # -- fed lifecycle -----------------------------------------------------
     def fed_before_train(self):

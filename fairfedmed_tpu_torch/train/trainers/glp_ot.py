@@ -323,7 +323,9 @@ class GLPOTBase(TrainerX):
             diff = bool(getattr(self.cfg.TRAINER.GLP_OT_LORA, "DIFFERENTIABLE_FAIRNESS", False))
             loss = loss + lam * fairness_confidence_loss(logits, label, attr, self.num_groups,
                                                          differentiable=diff)
-        return loss
+        # FedProx: an extension, as in the JAX package (the reference GLP
+        # trainers take no FedProx)
+        return self.with_fedprox(loss, self.trainable["prompt_learner"]["ctx"])
 
     # ------------------------------------------------------------- hot loop
     def forward_backward(self, batch):
@@ -362,11 +364,6 @@ class GLPOTBase(TrainerX):
             self.update_lr()
             set_learning_rate(self.optimizer, self.get_current_lr())
         return loss_summary
-
-    def _to_device(self, x):
-        """A batch array (numpy, or a tensor from ``prefetch_to_device``) on
-        the trainer's device."""
-        return torch.as_tensor(x).to(self.device, non_blocking=True)
 
     def _target_attr(self, attrs):
         if self.disable_attr:

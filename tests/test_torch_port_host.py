@@ -171,6 +171,8 @@ def test_sgd_two_steps_match_optax_chain():
             tp.grad = torch.tensor(g)
             opt.step()
     np.testing.assert_allclose(tp.detach().numpy(), np.asarray(jp), atol=1e-7, rtol=1e-6)
-    cfg.OPTIM.NAME = "adam"
-    with pytest.raises(NotImplementedError):
+    cfg.OPTIM.NAME = "adagrad"  # not one of AVAI_OPTIMS, on either side
+    with pytest.raises(ValueError):
         toptim.build_optimizer([tp], cfg.OPTIM, 1e-3)
+    with pytest.raises(ValueError):
+        joptim.build_optimizer(cfg.OPTIM)
