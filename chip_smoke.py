@@ -77,6 +77,26 @@ Phases, each printing one JSON line:
      1 round; the proximal term is held in the loss (see the function).
    Nothing in the image tower trains on these paths, so the backward runs
    through the text blocks only.
+8. The client-parallel rounds: the launchers of 5 and 7 with their own
+   ``--parallel_clients`` (``fed/parallel_driver.py``: per-client state and
+   optimizer state on the device, device data caches, one blocking fetch
+   per round), through the CLI as in 5 (the runner is recorded by
+   ``CheckedRunner``):
+   - ``parallel_cli_path``, ``parallel_oct_path`` (2 rounds; round 1 trains
+     from the device caches; oct_path's host data time beside it) and
+     ``parallel_rn50_path`` (1 round; every client's ``__bn_stats__`` finite
+     and moved);
+   - ``parallel_branches``: promptfl_fedchexmimic.sh and
+     fedotp_fedchexmimic.sh (every plan valid), 2 rounds, and
+     fairfedlora_fedchexmimic_local.sh and the PromptFL flags with
+     ``--model fedprox``, 1 round, with 7's substitutions;
+   - ``parallel_equiv``: sequential then parallel at momentum 0 and fp32
+     (``test-vit-224``, 2 clients, 2 rounds): equal acc/AUC and weights.
+   Each checks one blocking fetch per round and, through
+   ``torch.cuda.set_sync_debug_mode``, that nothing in the dispatch half of
+   a round after the first waits for the device.  Beside them: per round
+   the dispatch and resolve host times and the host data time, cache bytes
+   and type, peak memory.
 
 Every path zeroes the kernel launch counters just before it runs and reads
 them just after; the counts must equal what the layer structure implies.
@@ -90,6 +110,7 @@ exit code is then not 0 and the last line is not printed.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import csv
 import json
@@ -103,6 +124,7 @@ import subprocess
 import sys
 import time
 import types
+import warnings
 
 import numpy as np
 import torch
@@ -110,6 +132,7 @@ import torch.nn.functional as F
 
 from fairfedmed_tpu_torch.config import get_cfg_default
 from fairfedmed_tpu_torch.fed.aggregate import average_weights_ema
+from fairfedmed_tpu_torch.fed.parallel_driver import ParallelRoundRunner
 from fairfedmed_tpu_torch.ops import _build
 from fairfedmed_tpu_torch.ops import attention as A
 from fairfedmed_tpu_torch.ops.sinkhorn import entropic_cot, sinkhorn
@@ -133,6 +156,7 @@ RN50_SCRIPT = os.path.join(REPO, "scripts", "fairfedlora_fairfedmed_rn50.sh")
 RN50_OCT_SCRIPT = os.path.join(REPO, "scripts", "fairfedlora_fairfedmed_oct_rn50.sh")
 PROMPTFL_SCRIPT = os.path.join(REPO, "scripts", "fedchexmimic", "promptfl_fedchexmimic.sh")
 FEDOTP_SCRIPT = os.path.join(REPO, "scripts", "fedchexmimic", "fedotp_fedchexmimic.sh")
+LOCAL_SCRIPT = os.path.join(REPO, "scripts", "fedchexmimic", "fairfedlora_fedchexmimic_local.sh")
 # the FedChexMimic launchers run on the FairFedMed SLO fixture: their own
 # dataset is not ported (ROADMAP M14), and the fixture has no ``age``
 FAIRFEDMED_FLAGS = (("--dataset-config-file", "configs/datasets/fairfedmed.yaml"),
@@ -579,14 +603,22 @@ def main_path(dev):
 # phase 5: the CLI
 # --------------------------------------------------------------------------- #
 
-def script_flags(path=SCRIPT) -> list:
+PARALLEL_SWITCH = re.compile(r'^\$\(\[ "\$\{PARALLEL_CLIENTS:-1\}" = "1" \] && echo (--\S+)\)$')
+
+
+def script_flags(path=SCRIPT, parallel=False) -> list:
     """The ``federated_main.py`` flags of a launcher script, with its shell
     variables substituted (``${VAR:-default}`` takes the default, in an
-    assignment or inline) and the ``$(...)``-valued ones (the
-    parallel-clients switch) dropped."""
+    assignment or inline).  The ``$(...)``-valued parallel-clients switch is
+    dropped, or with ``parallel`` kept where the script passes it, as the
+    scripts do by default (``PARALLEL_CLIENTS`` unset)."""
     with open(path) as f:
         text = f.read()
     env = {}
+    for name, value in re.findall(r"^(\w+)=(\$\(.*)$", text, re.M):
+        switch = PARALLEL_SWITCH.match(value)
+        if parallel and switch:
+            env[name] = switch.group(1)
 
     def subst(token):
         def value(m):
@@ -690,19 +722,106 @@ def set_flag(argv, flag, *values) -> list:
     return argv[:i + 1] + list(values) + argv[j:]
 
 
-def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None):
+@contextlib.contextmanager
+def sync_watch():
+    """Collect, as ``file:line: message``, every call in the block that
+    makes the host wait for the device (``torch.cuda.set_sync_debug_mode``
+    warns on each)."""
+    found = []
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            yield found
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+        found.extend(f"{os.path.relpath(w.filename, REPO)}:{w.lineno}: {w.message}"
+                     for w in rec if "synchroniz" in str(w.message))
+
+
+class CheckedRunner(ParallelRoundRunner):
+    """The CLI's client-parallel runner with its rounds recorded: per round
+    the clients and their steps, the host time of the dispatch half and of
+    the host data work in it (batch assembly, cache decode), every call in
+    the dispatch half that waited for the device, the per-step metrics, the
+    evaluation batches enqueued, and the blocking fetches."""
+
+    last = None
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dispatches, self.resolved, self.eval_batches, self._data_s = [], [], 0, 0.0
+        self.eval_calls = []  # the clients of each evaluation enqueued
+        CheckedRunner.last = self
+
+    def _timed(self, fn, *args):
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            self._data_s += time.perf_counter() - t
+
+    def _round_batches_device(self, idxs_users):
+        return self._timed(super()._round_batches_device, idxs_users)
+
+    def _round_batches(self, idxs_users):
+        return self._timed(super()._round_batches, idxs_users)
+
+    def _ensure_eval_cache(self, idx):
+        return self._timed(super()._ensure_eval_cache, idx)
+
+    def _eval_dispatch(self, idxs_users):
+        ctx = super()._eval_dispatch(idxs_users)
+        if ctx is not None:
+            self.eval_batches += ctx["logits"].shape[0] * ctx["logits"].shape[1]
+            self.eval_calls.append(list(idxs_users))
+        return ctx
+
+    def run_round(self, epoch, idxs_users, max_epoch, **kwargs):
+        self._data_s = 0.0
+        t = time.perf_counter()
+        with sync_watch() as syncs:
+            out = super().run_round(epoch, idxs_users, max_epoch, **kwargs)
+        self.dispatches.append({"round": epoch, "deferred": bool(kwargs.get("deferred")),
+                                "dispatch_s": time.perf_counter() - t,
+                                "host_data_s": self._data_s, "syncs": syncs})
+        return out
+
+    def resolve_round(self, handle):
+        t = time.perf_counter()
+        with sync_watch() as syncs:
+            ms = super().resolve_round(handle)
+        self.resolved.append({"round": handle["epoch"], "clients": handle["idxs_users"],
+                              "n_steps": [int(n) for n in handle["n_steps"]], "metrics": ms,
+                              "resolve_s": time.perf_counter() - t, "syncs": syncs})
+        return ms
+
+    def parallel_eval(self, idxs_users, current_epoch):
+        with sync_watch() as syncs:  # after its round's resolve_round
+            out = super().parallel_eval(idxs_users, current_epoch)
+        self.resolved[-1]["syncs"] += syncs
+        return out
+
+
+def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None,
+            parallel=False, opts=()):
     """``fairfedmed_tpu_torch.federated_main.main`` with the flags of a
     launcher script (the real config files, batch 32 / 100), except
     ``--root`` and ``--output-dir`` (under ``build/``), ``--round``, no
-    ``--parallel_clients``, and ``overrides`` (``(flag, value, ...)``
-    tuples).  The kernel counters are zeroed just before and read just
-    after; the expected counts come from the batches of the clients that the
-    log shows were trained and evaluated.  ``on_build(trainer)`` runs once
-    the CLI has built its trainer.  Returns what the path's checks read."""
+    ``--parallel_clients`` (with ``parallel`` the script's own switch kept),
+    ``overrides`` (``(flag, value, ...)`` tuples) and config ``opts`` last.
+    The kernel counters are zeroed just before and read just after; the
+    expected counts come from the set sizes of the clients that the log (or
+    with ``parallel`` the runner's rounds and evaluations) shows were
+    trained and evaluated, and the runner's own step counts must equal
+    them.
+    ``on_build(trainer)`` runs once the CLI has built its trainer.  Returns
+    what the path's checks read."""
     from fairfedmed_tpu_torch import federated_main as fm
 
     shutil.rmtree(out_dir, ignore_errors=True)
-    argv = script_flags(script)
+    argv = script_flags(script, parallel=parallel)
     for flag, value in (("--root", data_root), ("--output-dir", out_dir), ("--round", str(rounds))):
         argv = set_flag(argv, flag, value)
     for flag, *values in overrides:
@@ -710,7 +829,10 @@ def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None
     for flag in ("--config-file", "--dataset-config-file"):  # config paths from the repo
         i = argv.index(flag)
         argv[i + 1] = os.path.join(REPO, argv[i + 1])
+    argv += list(opts)
     args = fm.build_arg_parser().parse_args(argv)
+    if parallel != ("--parallel_clients" in argv):
+        raise AssertionError(f"the launcher's parallel switch: {argv}")
 
     steps, epochs, holder = [], [], {}
     build_trainer = fm.build_trainer
@@ -739,6 +861,8 @@ def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None
         return trainer
 
     fm.build_trainer = recording_build
+    fm.ParallelRoundRunner = CheckedRunner
+    CheckedRunner.last = None
     console_path = out_dir + "_console.txt"
     saved_stdout = sys.stdout
     torch.cuda.reset_peak_memory_stats()
@@ -760,6 +884,7 @@ def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None
         raise
     finally:
         fm.build_trainer = build_trainer
+        fm.ParallelRoundRunner = ParallelRoundRunner
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = {"attention_fwd": A.attention_fwd.launches,
@@ -768,12 +893,43 @@ def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None
     trainer = holder["trainer"]
     with open(os.path.join(out_dir, "log.txt")) as f:
         log = f.read()
-    trained = {}  # round -> clients, from "Save checkpoint to .../epoch{r}_client{i}.npz"
-    for r, c in re.findall(r"Save checkpoint to .*epoch(\d+)_client(\d+)\.npz", log):
-        trained.setdefault(int(r), []).append(int(c))
     evaluated = [int(c) for c in re.findall(r"Evaluate on the client(\d+)_test set", log)]
-    n_train = sum(len(trainer.fed_train_loader_x_dict[c]) for cs in trained.values() for c in cs)
-    n_eval = sum(len(trainer.fed_test_loader_x_dict[c]) for c in evaluated)
+    runner = CheckedRunner.last
+    if parallel:
+        if runner is None:
+            raise AssertionError("the CLI built no client-parallel runner")
+        # the batches each round must run, from the set sizes: per client
+        # its full batches, one cycled batch when it holds fewer than a
+        # batch, none when it is empty; every evaluated client pads its test
+        # batches to the most of its round
+        loader_cfg = trainer.cfg.DATALOADER
+        bs, bs_test = loader_cfg.TRAIN_X.BATCH_SIZE, loader_cfg.TEST.BATCH_SIZE
+        n_tr = {c: len(ld.dataset) for c, ld in trainer.fed_train_loader_x_dict.items()}
+        n_te = {c: len(ld.dataset) for c, ld in trainer.fed_test_loader_x_dict.items()}
+        trained, n_train = {}, 0  # round -> clients that trained a step
+        for r in runner.resolved:
+            want = [n_tr[c] // bs if n_tr[c] >= bs else int(n_tr[c] > 0) for c in r["clients"]]
+            if r["n_steps"] != want:
+                raise AssertionError(f"round {r['round']}: the runner ran {r['n_steps']} "
+                                     f"steps for clients {r['clients']}, the data gives {want}")
+            trained.setdefault(r["round"], []).extend(
+                c for c, n in zip(r["clients"], want) if n > 0)
+            n_train += sum(want)
+        n_eval = sum(len(cs) * max(-(-n_te[c] // bs_test) for c in cs) for cs in runner.eval_calls)
+        if n_eval != runner.eval_batches or sorted(evaluated) != sorted(
+                c for cs in runner.eval_calls for c in cs):
+            raise AssertionError(f"the runner evaluated {runner.eval_batches} batches for "
+                                 f"{runner.eval_calls}, the data gives {n_eval}; the log "
+                                 f"evaluated {evaluated}")
+        steps = [{"loss": float(r["metrics"][j, i, 0]), "valid": float(r["metrics"][j, i, 1])}
+                 for r in runner.resolved for j, n in enumerate(r["n_steps"]) for i in range(n)]
+    else:
+        trained = {}  # round -> clients, from "Save checkpoint to .../epoch{r}_client{i}.npz"
+        for r, c in re.findall(r"Save checkpoint to .*epoch(\d+)_client(\d+)\.npz", log):
+            trained.setdefault(int(r), []).append(int(c))
+        n_train = sum(len(trainer.fed_train_loader_x_dict[c])
+                      for cs in trained.values() for c in cs)
+        n_eval = sum(len(trainer.fed_test_loader_x_dict[c]) for c in evaluated)
     # every batch runs each text block (and each ViT block) once.  The
     # backward reaches every text block (the prompt context sits before
     # block 0) and the ViT blocks from the first whose input carries a
@@ -815,15 +971,30 @@ def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None
            "round_s": [cum[0]] + [b - a for a, b in zip(cum, cum[1:])],
            "trained_clients": trained, "evaluated_clients": evaluated,
            "train_batches": n_train, "eval_batches": n_eval,
-           "steps": steps, "step_ms_median": median(s["ms"] for s in steps),
+           "steps": steps, "step_ms_median": median(s["ms"] for s in steps if "ms" in s),
            "epochs": epochs,
            "data_ms_per_batch_median": median(e["data_ms_per_batch"] for e in epochs),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "rounds_wall_s": cum[-1] if cum else None,
            "acc": result["acc"], "auc": result["auc"],
            "final_npz_finite": {i: len(z) > 0 and all(np.isfinite(a).all() for a in z.values())
                                 for i, z in finals.items()},
            "launches": launches, "expected_launches": expected}
-    res.update(time_h2d(next(iter(trainer.fed_train_loader_x_dict[0]))["img"], dev))
+    if parallel:
+        res.update(
+            rounds=[{**{k: v for k, v in d.items() if k != "syncs"}, "dispatch_syncs": d["syncs"],
+                     "resolve_s": r["resolve_s"], "resolve_syncs": r["syncs"],
+                     "clients": r["clients"], "n_steps": r["n_steps"]}
+                    for d, r in zip(runner.dispatches, runner.resolved)],
+            fetches=runner.fetches, cache_bytes=runner._cached_bytes,
+            cached_clients={"train": sorted(c for c, v in runner._data_cache.items() if v),
+                            "eval": sorted(c for c, v in runner._eval_cache.items() if v)},
+            cache_dtypes=sorted({str(v["img"].dtype).replace("torch.", "")
+                                 for v in list(runner._data_cache.values())
+                                 + list(runner._eval_cache.values()) if v}))
+        res["runner"] = runner
+    else:
+        res.update(time_h2d(next(iter(trainer.fed_train_loader_x_dict[0]))["img"], dev))
     return res, finals, trainer
 
 
@@ -842,6 +1013,8 @@ def check_cli_run(res, rounds, trained_per_round=None, with_auc=True):
     if trained_per_round and (not res["steps"]
                               or not all(np.isfinite(s["loss"]) for s in res["steps"])):
         raise AssertionError(f"non-finite or missing losses: {res['steps']}")
+    if "rounds" in res:  # the client-parallel rounds
+        check_parallel_rounds(res, rounds)
     if len(res["acc"]) != rounds or len(res["auc"]) != (rounds if with_auc else 0) \
             or not np.isfinite(res["acc"] + res["auc"]).all():
         raise AssertionError(f"non-finite or missing metrics: {res['acc']} {res['auc']}")
@@ -850,6 +1023,23 @@ def check_cli_run(res, rounds, trained_per_round=None, with_auc=True):
     if res["launches"] != res["expected_launches"]:
         raise AssertionError(f"kernel launches {res['launches']} != expected "
                              f"{res['expected_launches']}")
+
+
+def check_parallel_rounds(res, rounds):
+    """The client-parallel rounds: one blocking fetch per round (the one
+    call of the resolve half and its evaluation that waits for the device),
+    and no such call in the dispatch half of a round after the first (round
+    0 fills the device caches)."""
+    if res["fetches"] != rounds or len(res["rounds"]) != rounds:
+        raise AssertionError(f"{res['fetches']} blocking fetches in {len(res['rounds'])} "
+                             f"rounds, expected one in each of {rounds}")
+    for r in res["rounds"]:
+        if len(r["resolve_syncs"]) != 1:
+            raise AssertionError(f"round {r['round']}'s resolve waited for the device "
+                                 f"{len(r['resolve_syncs'])} times: {r['resolve_syncs'][:20]}")
+        if r["round"] >= 1 and r["deferred"] and r["dispatch_syncs"]:
+            raise AssertionError(f"round {r['round']}'s dispatch waited for the device: "
+                                 f"{r['dispatch_syncs'][:20]}")
 
 
 SLO_ROOT = os.path.join(REPO, "build", "chip_smoke_data")
@@ -882,6 +1072,9 @@ def cli_path(dev):
     return res["launches"]
 
 
+SEQUENTIAL = {}  # what the parallel phases compare with, from the sequential ones
+
+
 def oct_path(dev):
     """scripts/fairfedlora_fairfedmed_oct.sh: ViT-B/16 FairLoRA on 3D OCT
     B-scans (32 of each volume's 128, 2 slices of 16), 2 rounds."""
@@ -889,6 +1082,9 @@ def oct_path(dev):
     res, finals, trainer = run_cli(OCT_SCRIPT, OCT_ROOT,
                                    os.path.join(REPO, "build", "chip_smoke_oct"), 2, dev)
     res = {"phase": "oct_path", **res, "fixture": fixture}
+    SEQUENTIAL["oct_path"] = {k: res[k] for k in ("round_s", "data_ms_per_batch_median",
+                                                  "train_batches", "eval_batches",
+                                                  "peak_mem_gib")}
     emit(res)
     check_cli_run(res, 2)
     if not all(z["proj_per_3d_slice.weight"].shape == (3, 16, 5, 5) for z in finals.values()):
@@ -1155,8 +1351,148 @@ def fedprox_path(dev):
     return res["launches"]
 
 
+# --------------------------------------------------------------------------- #
+# phase 8: the client-parallel rounds (--parallel_clients, the launchers' own)
+# --------------------------------------------------------------------------- #
+
+def _parallel_run(phase, script, data_root, rounds, dev, overrides=(), opts=()):
+    """run_cli with the launcher's ``--parallel_clients``; the result
+    without the runner object, the runner, the final weights and the
+    trainer."""
+    out_dir = os.path.join(REPO, "build", f"chip_smoke_{phase}")
+    res, finals, trainer = run_cli(script, data_root, out_dir, rounds, dev, overrides,
+                                   parallel=True, opts=opts)
+    runner = res.pop("runner")
+    return {"phase": phase, **res}, runner, finals, trainer
+
+
+def parallel_cli_path(dev):
+    """scripts/fairfedlora_fairfedmed.sh with its ``--parallel_clients``
+    (FedOTPLoRA, ema_personal: per-client state and optimizer state on the
+    device) on cli_path's SLO fixture, 2 rounds."""
+    res, _, _, _ = _parallel_run("parallel_cli_path", SCRIPT, SLO_ROOT, 2, dev)
+    emit(res)
+    check_cli_run(res, 2)
+    if res["cache_dtypes"] != ["uint8"] or res["cached_clients"]["train"] != [0, 1, 2]:
+        raise AssertionError(f"SLO caches: {res['cache_dtypes']} {res['cached_clients']}")
+    return res["launches"]
+
+
+def parallel_oct_path(dev):
+    """scripts/fairfedlora_fairfedmed_oct.sh with its ``--parallel_clients``
+    on oct_path's fixture, 2 rounds: round 0 decodes every client's volumes
+    once into the device caches (fp32: the 200 -> 224 slice resize leaves
+    them fractional), round 1 trains from them.  The host data time per
+    round beside oct_path's."""
+    res, _, finals, _ = _parallel_run("parallel_oct_path", OCT_SCRIPT, OCT_ROOT, 2, dev)
+    seq = SEQUENTIAL.get("oct_path")
+    if seq is not None:  # its data time covers the training batches only
+        res["oct_path"] = {**seq, "train_host_data_s": seq["data_ms_per_batch_median"] * 1e-3
+                           * seq["train_batches"]}
+    emit(res)
+    check_cli_run(res, 2)
+    if res["cached_clients"]["train"] != [0, 1, 2] or res["cached_clients"]["eval"] != [0, 1, 2]:
+        raise AssertionError(f"round 1 did not train from the device caches: "
+                             f"{res['cached_clients']}")
+    if not all(z["proj_per_3d_slice.weight"].shape == (3, 16, 5, 5) for z in finals.values()):
+        raise AssertionError("proj_per_3d_slice.weight missing from the final weights")
+    return res["launches"]
+
+
+def parallel_rn50_path(dev):
+    """scripts/fairfedlora_fairfedmed_rn50.sh with its ``--parallel_clients``
+    on the SLO fixture, 1 round: every client's ``__bn_stats__`` finite and
+    moved from the init (mean 0, var 1)."""
+    res, runner, finals, _ = _parallel_run("parallel_rn50_path", RN50_SCRIPT, SLO_ROOT, 1, dev)
+    stats = {k: v for k, v in runner.personal_t.items() if k.startswith("__bn_stats__.")}
+    per_client = []
+    for c in range(runner.num_users):
+        rows = {k: v[c].float() for k, v in stats.items()}
+        per_client.append({
+            "finite": all(bool(torch.isfinite(v).all()) for v in rows.values()),
+            "moved": all(bool(((v != 0) if k.endswith(".mean") else (v != 1)).any())
+                         for k, v in rows.items())})
+    res.update(bn_stat_tensors=len(stats), bn_stats_per_client=per_client,
+               final_bn_stat_tensors=_check_bn_stats(finals))
+    emit(res)
+    check_cli_run(res, 1)
+    if not stats or not all(p["finite"] and p["moved"] for p in per_client):
+        raise AssertionError(f"per-client BatchNorm statistics: {per_client}")
+    return res["launches"]
+
+
+def parallel_branches(dev):
+    """The other branches with the launchers' ``--parallel_clients``, on
+    cli_path's SLO fixture with the same FairFedMed substitutions as
+    promptfl_path: promptfl_fedchexmimic.sh (fedavg, PromptFL) and
+    fedotp_fedchexmimic.sh (FedOTP, prompt_personal, COT; every plan valid),
+    2 rounds each; fairfedlora_fedchexmimic_local.sh (local) and the
+    PromptFL flags with ``--model fedprox --mu 0.5``, 1 round each.  Launches
+    are counted per run (the counters zeroed before each) and summed."""
+    runs = (("parallel_promptfl", PROMPTFL_SCRIPT, 2, (), False),
+            ("parallel_fedotp", FEDOTP_SCRIPT, 2, (), True),
+            ("parallel_local", LOCAL_SCRIPT, 1, (), False),
+            ("parallel_fedprox", PROMPTFL_SCRIPT, 1, (("--model", "fedprox"), ("--mu", "0.5")),
+             False))
+    total = {"attention_fwd": 0, "attention_bwd": 0}
+    for phase, script, rounds, extra, with_auc in runs:
+        overrides = FAIRFEDMED_FLAGS + tuple(extra)
+        res, _, finals, trainer = _parallel_run(phase, script, SLO_ROOT, rounds, dev, overrides)
+        res["changed_flags"] = [list(f) for f in overrides]
+        emit(res)
+        check_cli_run(res, rounds, (2,) * rounds, with_auc=with_auc)
+        if phase == "parallel_fedotp" and not all(s["valid"] == 1 for s in res["steps"]):
+            raise AssertionError(f"an invalid OT plan: {res['steps']}")
+        _check_ctx(finals, 1 if script == PROMPTFL_SCRIPT else 2, trainer)
+        for k in total:
+            total[k] += res["launches"][k]
+    emit({"phase": "parallel_branches", "launches": total})
+    return total
+
+
+def parallel_equiv(dev):
+    """The client-parallel rounds against the sequential loop on the card
+    where they compute the same function: momentum 0, fp32,
+    ``test-vit-224``, the FairLoRA launcher's flags with 2 clients (frac
+    1.0) for 2 rounds on the SLO fixture.  Tolerance: acc and AUC 1e-6
+    (percent), final weights 1e-5 + 1e-4 relative (fp32, the optimizer's
+    update rounded in another order)."""
+    overrides = (("--backbone", "test-vit-224"), ("--num_users", "2"), ("--frac", "1.0"))
+    opts = ("OPTIM.MOMENTUM", "0.0", "TRAINER.GLP_OT.PREC", "fp32")
+    seq, seq_finals, _ = run_cli(SCRIPT, SLO_ROOT,
+                                 os.path.join(REPO, "build", "chip_smoke_equiv_seq"), 2, dev,
+                                 overrides, opts=opts)
+    par, _, par_finals, _ = _parallel_run("parallel_equiv", SCRIPT, SLO_ROOT, 2, dev, overrides,
+                                          opts)
+    check_cli_run(seq, 2, (2, 2))
+    check_cli_run(par, 2, (2, 2))
+    tol = {"acc_auc": 1e-6, "weights_atol": 1e-5, "weights_rtol": 1e-4}
+    metric_err = max(abs(a - b) for k in ("acc", "auc") for a, b in zip(par[k], seq[k]))
+    weight_err, weight_excess = 0.0, 0.0
+    for c, want in seq_finals.items():
+        for k, w in want.items():
+            err = np.abs(par_finals[c][k] - w)
+            weight_err = max(weight_err, float(err.max()))
+            weight_excess = max(weight_excess, float(
+                (err - tol["weights_atol"] - tol["weights_rtol"] * np.abs(w)).max()))
+    launches = {k: seq["launches"][k] + par["launches"][k] for k in seq["launches"]}
+    res = {"phase": "parallel_equiv", "model": "test-vit-224", "prec": "fp32", "momentum": 0.0,
+           "tol": tol, "acc": {"sequential": seq["acc"], "parallel": par["acc"]},
+           "auc": {"sequential": seq["auc"], "parallel": par["auc"]},
+           "metric_max_abs_err": metric_err, "weights_max_abs_err": weight_err,
+           "round_s": {"sequential": seq["round_s"], "parallel": par["round_s"]},
+           "parallel_rounds": par["rounds"], "fetches": par["fetches"],
+           "launches": launches, "launches_sequential": seq["launches"],
+           "launches_parallel": par["launches"]}
+    emit(res)
+    if len(par["acc"]) != 2 or metric_err > tol["acc_auc"] or weight_excess > 0:
+        raise AssertionError(f"parallel != sequential: metrics {metric_err}, weights {weight_err}")
+    return launches
+
+
 PATHS = ("main_path", "cli_path", "oct_path", "rn50_path", "rn50_oct_path", "ot_path",
-         "promptfl_path", "fedotp_path", "clip_path", "fedprox_path")
+         "promptfl_path", "fedotp_path", "clip_path", "fedprox_path", "parallel_cli_path",
+         "parallel_oct_path", "parallel_rn50_path", "parallel_branches", "parallel_equiv")
 
 
 def kernels_line(rows, launches):

@@ -27,3 +27,15 @@ def flatten_paths(tree: Any, sep: str = ".") -> dict:
 
     rec(tree, "")
     return out
+
+
+def unflatten_like(template: Any, flat: Mapping, sep: str = ".", prefix: str = "") -> Any:
+    """``flatten_paths`` inverted onto ``template``'s dicts and lists: the
+    same structure, each leaf taken from ``flat`` by its dotted path."""
+    if isinstance(template, Mapping):
+        return {k: unflatten_like(v, flat, sep, f"{prefix}{sep}{k}" if prefix else str(k))
+                for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return [unflatten_like(v, flat, sep, f"{prefix}{sep}{i}" if prefix else str(i))
+                for i, v in enumerate(template)]
+    return flat[prefix]

@@ -309,7 +309,35 @@ class FairFedMedDataset:
         return img.astype(np.float32), label, attrs
 
     def load_item_u8(self, i: int):
-        raise NotImplementedError("the uint8 decode path is not ported yet (ROADMAP M15)")
+        """The uint8 decode for the client-parallel runner's device caches
+        (JAX fairfedmed.py:316-346): ``(image uint8 [C, H, W], label,
+        attrs)``, equal to ``load_item``'s values, or None where the modality
+        needs float work (a resize, a min-shift, a float source).  It skips
+        the fp32 copies, four times the bytes of the payload."""
+        m = self.modality_type
+        res = self.resolution
+        if m not in ("slo_fundus", "oct_bscans", "oct_bscans_3d"):
+            return None
+        raw = self._raw_members(i)
+        src = raw["slo_fundus"] if m == "slo_fundus" else raw["oct_bscans"]
+        if src.dtype != np.uint8:
+            return None
+        if m == "slo_fundus":
+            img = np.transpose(src)
+            if img.shape[0] != res or img.shape[1] != res:
+                return None  # needs float interpolation
+            img = img[None]
+            if self.depth > 1:
+                img = np.repeat(img, self.depth, axis=0)
+        elif m == "oct_bscans":
+            img = src[::4]  # 128 -> 32 slices
+            if img.shape[1] != res:
+                return None
+        else:  # oct_bscans_3d
+            img = src[None]
+        label = self._labels[i]
+        attrs = np.asarray(self._attr_rows[i], np.int32)
+        return np.ascontiguousarray(img), label, attrs
 
 
 def _read_filename_column(csv_path: str) -> List[str]:

@@ -12,7 +12,11 @@ numpy batching:
   ``fed_test_loader_x_dict`` keyed by client index, as in the reference;
 * shuffling draws from numpy's global RNG (``np.random.permutation``), which
   the CLI seeds, so one seed gives the same batches here and in the JAX
-  package.
+  package;
+* a structured ``DATALOADER.TRAIN_X.SAMPLER`` needs a dataset with a Datum
+  list (``.items``); a client dataset without one (FairFedMed) shuffles at
+  random after one warning, as in the JAX package.  The samplers themselves
+  are not ported yet (ROADMAP M14b).
 
 ``prefetch_to_device`` keeps the next batches on the device while the host
 decodes, with pinned host memory and non-blocking copies on CUDA.
@@ -130,15 +134,26 @@ class DataManager:
         self.dataset = dataset
         tfm_train = build_transform(cfg, is_train=True)
         tfm_test = build_transform(cfg, is_train=False)
-        sampler = cfg.DATALOADER.TRAIN_X.SAMPLER
-        if sampler not in ("RandomSampler", "SequentialSampler"):
-            raise NotImplementedError(f"sampler {sampler!r} is not ported yet (ROADMAP M14)")
+        stype = cfg.DATALOADER.TRAIN_X.SAMPLER
 
         self.fed_train_loader_x_dict = {}
         self.fed_test_loader_x_dict = {}
+        warned_sampler = False
         for idx in range(cfg.DATASET.USERS):
+            client_ds = dataset.federated_train_x[idx]
+            if stype not in ("RandomSampler", "SequentialSampler"):
+                # structured samplers need a Datum list (JAX manager.py:141-158)
+                if hasattr(client_ds, "items"):
+                    raise NotImplementedError(f"sampler {stype!r} is not ported yet "
+                                              "(ROADMAP M14b: data/samplers.py)")
+                if not warned_sampler:  # once, on the first client it concerns
+                    warned_sampler = True
+                    print(f"WARNING: sampler {stype!r} requires a Datum-list "
+                          f"dataset (.items); {type(client_ds).__name__} has "
+                          f"none (client {idx}) — falling back to random "
+                          "shuffling")
             self.fed_train_loader_x_dict[idx] = ClientLoader(
-                dataset.federated_train_x[idx],
+                client_ds,
                 batch_size=cfg.DATALOADER.TRAIN_X.BATCH_SIZE,
                 is_train=True,
                 transform=tfm_train,

@@ -13,10 +13,12 @@ weights into the shared trainer, runs the local epochs, harvests the
 trainable state and aggregates.  Every sequential branch of the JAX CLI is
 here: CLIP zero-shot evaluation, fedavg, fedprox, PromptFL/FedOTP (global
 prompt rows averaged, local rows kept per client), FedOTPLoRA (FairLoRA
-with group singular values and EMA), FedOTPLinearFT and local.  The
-client-parallel rounds (``--parallel_clients``) and the ``Baseline`` trainer
-are not ported and raise.  The flags, their defaults and the printed lines
-are the JAX CLI's.
+with group singular values and EMA), FedOTPLinearFT and local.  With
+``--parallel_clients`` (the launchers' default) every branch but CLIP runs
+the client-parallel rounds of ``fed/parallel_driver.py`` instead: per-client
+state on the device, one blocking fetch per round.  Their round-state
+checkpoints (``--resume``) and the ``Baseline`` trainer are not ported and
+raise.  The flags, their defaults and the printed lines are the JAX CLI's.
 
 ``main`` runs on ``cuda`` and raises when no GPU is present; the override
 ``USE_CUDA False`` (or ``main(args, device="cpu")``) runs the plain PyTorch
@@ -38,12 +40,13 @@ from .config import CfgNode as CN
 from .config import get_cfg_default
 from .core.device import resolve_device
 from .fed.aggregate import average_weights, average_weights_ema
+from .fed.parallel_driver import ParallelRoundRunner
+from .fed.sampler import sample_clients
 from .train.engine import build_trainer
 from .utils.logger import setup_logger
 from .utils.tools import count_parameters, set_random_seed
 
-SEQUENTIAL_MODELS = ("fedavg", "fedprox", "PromptFL", "FedOTP", "FedOTPLoRA", "FedOTPLinearFT",
-                     "local")
+MODELS = ("fedavg", "fedprox", "PromptFL", "FedOTP", "FedOTPLoRA", "FedOTPLinearFT", "local")
 
 
 def extend_cfg(cfg, args):
@@ -114,8 +117,7 @@ def extend_cfg(cfg, args):
 
     cfg.MODEL.BACKBONE.PRETRAINED = True
     cfg.DATASET.DISEASE_TYPE = args.disease_type
-    # kept so configs match the JAX CLI's; the client-parallel rounds it
-    # selects there are not ported (main raises)
+    # client-parallel rounds (fed/parallel_driver.py)
     cfg.TRAIN.PARALLEL_CLIENTS = bool(getattr(args, "parallel_clients", False))
 
 
@@ -190,19 +192,38 @@ def _check_ported(args, cfg):
         raise NotImplementedError("--trainer Baseline is not ported yet (ROADMAP M17: "
                                   "models/backbones.py)")
     # the CLIP branch evaluates under any --model, as the JAX CLI's loop does
-    if args.trainer != "CLIP" and args.model not in SEQUENTIAL_MODELS:
+    if args.trainer != "CLIP" and args.model not in MODELS:
         raise NotImplementedError(f"Unknown aggregation model: {args.model}")
-    if cfg.TRAIN.PARALLEL_CLIENTS:
-        raise NotImplementedError("--parallel_clients is not ported yet (ROADMAP M16)")
+    if cfg.TRAIN.PARALLEL_CLIENTS and (args.resume or os.environ.get("FAIRFEDMED_ROUND_CKPT")):
+        # the JAX runner saves and restores its round state there; silently
+        # writing nothing would advertise a no-op
+        raise NotImplementedError("round-state checkpoints (--resume / FAIRFEDMED_ROUND_CKPT) "
+                                  "of the --parallel_clients rounds are not ported yet "
+                                  "(ROADMAP M18)")
 
 
 def _pick_users(args, epoch):
-    if len(args.idxs_users_train) > 0:
-        return args.idxs_users_train
-    if epoch == 0:
-        return list(range(args.num_users))
-    m = max(int(args.frac * args.num_users), 1)
-    return list(np.random.choice(range(args.num_users), m, replace=False))
+    return sample_clients(args.num_users, args.frac, epoch,
+                          idxs_users_train=args.idxs_users_train)
+
+
+def _build_runner(cfg, args, trainer, datanumber_client, datanumber_client_by_attr):
+    """The client-parallel runner for ``--parallel_clients`` (JAX
+    federated_main.py:223-243), or None with the JAX CLI's notice."""
+    supported = (args.model in MODELS and args.trainer != "CLIP"
+                 and hasattr(trainer, "make_parallel_local_step"))
+    if not supported:
+        print("parallel_clients not supported for this model/trainer; "
+              "using sequential rounds")
+        return None
+    try:
+        runner = ParallelRoundRunner(trainer, cfg, args, datanumber_client,
+                                     datanumber_client_by_attr)
+    except NotImplementedError as e:
+        print(f"parallel_clients unavailable ({e}); using sequential rounds")
+        return None
+    print("Client-parallel mesh rounds enabled")
+    return runner
 
 
 def main(args, device=None):
@@ -250,14 +271,21 @@ def main(args, device=None):
         datanumber_client_by_attr = [c + [0] * (width - len(c)) for c in datanumber_client_by_attr]
     global_weights = copy.deepcopy(local_trainer.state_dict())
 
+    # client-parallel rounds: per-client state stays on the device between
+    # rounds, and each round ends in one blocking fetch
+    runner = None
+    if cfg.TRAIN.PARALLEL_CLIENTS:
+        runner = _build_runner(cfg, args, local_trainer, datanumber_client,
+                               datanumber_client_by_attr)
+
     max_epoch = cfg.OPTIM.ROUND
     global_test_acc_list, global_test_error_list = [], []
     global_test_f1_list, global_test_auc_list = [], []
     global_epoch_list, global_time_list = [], []
     start = time.time()
-    if args.resume:
-        # round-state checkpoints belong to the client-parallel path, which
-        # is not ported; never advertise a no-op
+    if args.resume and runner is None:
+        # round-state checkpoints belong to the client-parallel path; never
+        # advertise a no-op
         print(f"WARNING: --resume {args.resume} requires the "
               "--parallel_clients mesh path; no round-state checkpoint will "
               "be written or restored on the sequential loop")
@@ -268,179 +296,281 @@ def main(args, device=None):
                    global_epoch_list, epoch, with_auc=with_auc)
         _report_split_client(cfg, args, epoch, [r[0] for r in results])
 
-    for epoch in range(max_epoch):
-        if args.trainer == "CLIP":
-            # zero-shot evaluation, one round (federated_main.py:223-267)
-            print("------------local test start-------------")
-            m = max(int(args.frac * args.num_users), 1)
-            idxs_users = np.random.choice(range(args.num_users), m, replace=False)
+    def evaluate_parallel(eval_idxs, epoch):
+        results = runner.parallel_eval(eval_idxs, epoch)
+        if results is None:  # no device eval cache: the sequential evaluation
             results = []
-            for idx in idxs_users:
-                local_trainer.load_state_dict(global_weights)
-                results.append(local_trainer.test(idx=int(idx), current_epoch=epoch))
-            summarize(results, epoch, with_auc=False)
-            print("------------local test finish-------------")
-            break
-
-        elif args.model in ("fedavg", "fedprox"):
-            # FedAvg over the whole trainable state; fedprox adds the proximal
-            # term towards the round's global weights and evaluates only the
-            # round's users (federated_main.py:269-382)
-            fedprox = args.model == "fedprox"
-            m = max(int(args.frac * args.num_users), 1)
-            idxs_users = np.random.choice(range(args.num_users), m, replace=False)
-            print("idxs_users", idxs_users)
-            print("------------local train start epoch:", epoch, "-------------")
-            for idx in idxs_users:
-                local_trainer.load_state_dict(global_weights, strict=False)
-                local_trainer.train(idx=int(idx), global_epoch=epoch, is_fed=True,
-                                    global_weight=global_weights if fedprox else None,
-                                    fedprox=fedprox, mu=args.mu)
-                local_weights[idx] = copy.deepcopy(local_trainer.state_dict())
-            print("------------local train finish epoch:", epoch, "-------------")
-            global_weights = average_weights(local_weights, list(idxs_users), datanumber_client)
-            print("------------local test start-------------")
-            results = []
-            for idx in (idxs_users if fedprox else range(cfg.DATASET.USERS)):
-                local_trainer.load_state_dict(global_weights, strict=False)
-                results.append(local_trainer.test(idx=int(idx), current_epoch=epoch))
-            summarize(results, epoch, with_auc=False)
-
-        elif args.model in ("PromptFL", "FedOTP"):
-            # the first avg_prompt prompt rows averaged, the rest kept per
-            # client (federated_main.py:384-485)
-            if epoch == 0:
-                idxs_users = list(range(cfg.DATASET.USERS))
-            else:
-                m = max(int(args.frac * args.num_users), 1)
-                idxs_users = list(np.random.choice(range(args.num_users), m, replace=False))
-            print("idxs_users", idxs_users)
-            print("------------local train start epoch:", epoch, "-------------")
-            for idx in idxs_users:
-                if epoch == 0:
-                    local_trainer.load_state_dict(global_weights, strict=False)
-                else:
-                    local_trainer.load_state_dict(local_weights_per[idx], strict=False)
-                local_trainer.train(idx=int(idx), global_epoch=epoch, is_fed=True)
-                ctx = local_trainer.state_dict()["prompt_learner.ctx"]
-                local_weights_0[idx] = ctx[:args.avg_prompt].copy()
-                local_weights_1[idx] = ctx[args.avg_prompt:args.num_prompt].copy()
-            print("------------local train finish epoch:", epoch, "-------------")
-            global_prompt = average_weights(local_weights_0, idxs_users, datanumber_client,
-                                            islist=True)
-            print("------------local test start-------------")
-            results = []
-            for idx in range(cfg.DATASET.USERS):
-                local_weights_per[idx]["prompt_learner.ctx"] = np.concatenate(
-                    [global_prompt, local_weights_1[idx]], axis=0
-                ) if len(local_weights_1[idx]) else global_prompt
-            for idx in range(cfg.DATASET.USERS):
-                local_trainer.load_state_dict(local_weights_per[idx], strict=False)
+            for idx in eval_idxs:
+                runner.install_client(idx)
                 results.append(local_trainer.test(idx=idx, current_epoch=epoch))
-            summarize(results, epoch)
+        return results
 
-        elif args.model == "FedOTPLoRA":
-            # FairLoRA: global+local prompts, LoRA on the image encoder, EMA
-            # aggregation with group-weighted lora_S (federated_main.py:604-726)
-            idxs_users = _pick_users(args, epoch)
-            # large-scale eval gating (reference federated_main.py:654-676):
-            # with >= 50 users, per-round testing starts only at epoch 140
-            skip_eval = args.num_users >= 50 and epoch < 140
-            print("------------local train start epoch:", epoch, "-------------")
-            for idx in idxs_users:
-                if epoch == 0:
-                    local_trainer.load_state_dict(global_weights, strict=False)
-                else:
-                    local_trainer.load_state_dict(local_weights_per[idx], strict=False)
-                local_trainer.train(idx=int(idx), global_epoch=epoch, is_fed=True,
-                                    is_last_client=idx == idxs_users[-1])
-                local_weight = local_trainer.state_dict()
-                local_weights_0[idx] = local_weight["prompt_learner.ctx"][args.avg_prompt:args.num_prompt].copy()
-                local_weights_1[idx] = {k: v.copy() for k, v in local_weight.items() if "lora_S" in k}
-                local_weights[idx] = copy.deepcopy(local_weight)
+    # Deferred rounds (client-parallel path): a round's blocking fetch runs
+    # after the next round has been enqueued, and the parked flush prints
+    # the earlier round's whole block, so stdout keeps the blocking order
+    pending_flush = None
+
+    def _defer_round(epoch, handle, pre_lines, post_train_lines, eval_idxs, with_auc=True,
+                     skip_eval=False):
+        """The resolver that prints one round's block (the sampling line,
+        per-client loss lines, evaluation, metric summary) once its results
+        are fetched (JAX federated_main.py:273-306)."""
+        eval_idxs = [int(i) for i in eval_idxs]
+
+        def _flush():
+            for line in pre_lines:
+                print(line)
+            runner.resolve_round(handle)
             print("------------local train finish epoch:", epoch, "-------------")
-
-            print("Use EMA")
-            global_weights = average_weights_ema(
-                global_weights, local_weights, idxs_users, datanumber_client,
-                datanumber_client_by_attr, epoch, max_epoch, shared_half_s=args.shared_half_s)
-
-            print("------------local test start-------------")
-            results = []
-            all_users = args.idxs_users_test or list(range(cfg.DATASET.USERS))
-            for idx in all_users:
-                local_weights_per[idx] = copy.deepcopy(global_weights)
-                if idx in args.idxs_users_train:
-                    # local embeddings are kept only for explicitly listed
-                    # training users (reference federated_main.py:648-652)
-                    local_weights_per[idx]["prompt_learner.ctx"][args.avg_prompt:args.num_prompt] = local_weights_0[idx]
-                    if cfg.TRAINER.GLP_OT_LORA.LOCAL_S:
-                        for k, v in local_weights_1[idx].items():
-                            local_weights_per[idx][k] = v
+            for line in post_train_lines:
+                print(line)
             if skip_eval:
                 print("Epoch on server :", epoch)
-                continue
-            for idx in all_users:
-                local_trainer.load_state_dict(local_weights_per[idx], strict=False)
-                results.append(local_trainer.test(idx=int(idx), current_epoch=epoch))
-            summarize(results, epoch)
-
-        elif args.model == "FedOTPLinearFT":
-            # global+local prompts, LoRA on the image encoder, plain FedAvg
-            # over the full state; local prompt rows and local lora_S kept per
-            # client (federated_main.py:487-602)
-            idxs_users = _pick_users(args, epoch)
-            print("------------local train start epoch:", epoch, "-------------")
-            for idx in idxs_users:
-                if epoch == 0:
-                    local_trainer.load_state_dict(global_weights, strict=False)
-                else:
-                    local_trainer.load_state_dict(local_weights_per[idx], strict=False)
-                local_trainer.train(idx=int(idx), global_epoch=epoch, is_fed=True)
-                local_weight = local_trainer.state_dict()
-                local_weights_0[idx] = local_weight["prompt_learner.ctx"][args.avg_prompt:args.num_prompt].copy()
-                local_weights_1[idx] = {k: v.copy() for k, v in local_weight.items() if "lora_S" in k}
-                local_weights[idx] = copy.deepcopy(local_weight)
-            print("------------local train finish epoch:", epoch, "-------------")
-            global_weights = average_weights(local_weights, list(idxs_users), datanumber_client)
+                return
             print("------------local test start-------------")
-            results = []
-            all_users = args.idxs_users_test or list(range(cfg.DATASET.USERS))
-            for idx in all_users:
-                local_weights_per[idx] = copy.deepcopy(global_weights)
-                # a client never trained (restricted --idxs_users_train) has
-                # no local rows yet: it keeps the global ones
-                if len(local_weights_0[idx]) > 0:
-                    local_weights_per[idx]["prompt_learner.ctx"][args.avg_prompt:args.num_prompt] = local_weights_0[idx]
-                if cfg.TRAINER.GLP_OT_LORA.LOCAL_S and local_weights_1[idx]:
-                    for k, v in local_weights_1[idx].items():
-                        local_weights_per[idx][k] = v
-            for idx in all_users:
-                local_trainer.load_state_dict(local_weights_per[idx], strict=False)
-                results.append(local_trainer.test(idx=int(idx), current_epoch=epoch))
-            summarize(results, epoch)
+            summarize(evaluate_parallel(eval_idxs, epoch), epoch, with_auc=with_auc)
+            print("Epoch on server :", epoch)
+            print()
+        return _flush
 
-        else:  # local: no aggregation, a single round (federated_main.py:728-773)
-            m = max(int(args.frac * args.num_users), 1)
-            idxs_users = np.random.choice(range(args.num_users), m, replace=False)
-            print("idxs_users", idxs_users)
-            print("------------local train start epoch:", epoch, "-------------")
-            results = []
-            for idx in idxs_users:
-                local_trainer.load_state_dict(global_weights)
-                local_trainer.train(idx=int(idx), global_epoch=epoch, is_fed=True)
-                results.append(local_trainer.test(idx=int(idx), current_epoch=epoch))
-            summarize(results, epoch, with_auc=False)
-            break
+    def _schedule_flush(flush, defer_ok):
+        """Resolve the parked flush, then park this round's, or resolve it
+        now when its evaluation needs this round's state on the host path."""
+        nonlocal pending_flush
+        prev, pending_flush = pending_flush, None
+        if prev is not None:
+            prev()
+        if defer_ok:
+            pending_flush = flush
+        else:
+            flush()
 
-        print("Epoch on server :", epoch)
-        print()
+    def run_parallel(epoch, idxs_users, mode, pre_lines, post_train_lines, eval_idxs,
+                     with_auc=True, skip_eval=False, test_users=None, fedprox_mu=None):
+        handle = runner.run_round(epoch, list(idxs_users), max_epoch, mode=mode,
+                                  test_users=test_users, fedprox_mu=fedprox_mu,
+                                  eval_users=None if skip_eval else eval_idxs, deferred=True)
+        flush = _defer_round(epoch, handle, pre_lines, post_train_lines, eval_idxs,
+                             with_auc=with_auc, skip_eval=skip_eval)
+        _schedule_flush(flush, skip_eval or handle["pending_eval"] is not None)
+
+    try:
+        for epoch in range(max_epoch):
+            train_start = f"------------local train start epoch: {epoch} -------------"
+            if args.trainer == "CLIP":
+                # zero-shot evaluation, one round (federated_main.py:223-267)
+                print("------------local test start-------------")
+                m = max(int(args.frac * args.num_users), 1)
+                idxs_users = np.random.choice(range(args.num_users), m, replace=False)
+                results = []
+                for idx in idxs_users:
+                    local_trainer.load_state_dict(global_weights)
+                    results.append(local_trainer.test(idx=int(idx), current_epoch=epoch))
+                summarize(results, epoch, with_auc=False)
+                print("------------local test finish-------------")
+                break
+
+            elif args.model in ("fedavg", "fedprox"):
+                # FedAvg over the whole trainable state; fedprox adds the
+                # proximal term towards the round's global weights and
+                # evaluates only the round's users (federated_main.py:269-382)
+                fedprox = args.model == "fedprox"
+                m = max(int(args.frac * args.num_users), 1)
+                idxs_users = np.random.choice(range(args.num_users), m, replace=False)
+                eval_idxs = list(idxs_users) if fedprox else list(range(cfg.DATASET.USERS))
+                if runner is not None:
+                    run_parallel(epoch, idxs_users, "fedavg",
+                                 [f"idxs_users {idxs_users}", train_start], [], eval_idxs,
+                                 with_auc=False, fedprox_mu=float(args.mu) if fedprox else None)
+                    continue
+                print("idxs_users", idxs_users)
+                print("------------local train start epoch:", epoch, "-------------")
+                for idx in idxs_users:
+                    local_trainer.load_state_dict(global_weights, strict=False)
+                    local_trainer.train(idx=int(idx), global_epoch=epoch, is_fed=True,
+                                        global_weight=global_weights if fedprox else None,
+                                        fedprox=fedprox, mu=args.mu)
+                    local_weights[idx] = copy.deepcopy(local_trainer.state_dict())
+                print("------------local train finish epoch:", epoch, "-------------")
+                global_weights = average_weights(local_weights, list(idxs_users), datanumber_client)
+                print("------------local test start-------------")
+                results = []
+                for idx in eval_idxs:
+                    local_trainer.load_state_dict(global_weights, strict=False)
+                    results.append(local_trainer.test(idx=int(idx), current_epoch=epoch))
+                summarize(results, epoch, with_auc=False)
+
+            elif args.model in ("PromptFL", "FedOTP"):
+                # the first avg_prompt prompt rows averaged, the rest kept per
+                # client (federated_main.py:384-485)
+                if epoch == 0:
+                    idxs_users = list(range(cfg.DATASET.USERS))
+                else:
+                    m = max(int(args.frac * args.num_users), 1)
+                    idxs_users = list(np.random.choice(range(args.num_users), m, replace=False))
+                if runner is not None:
+                    run_parallel(epoch, idxs_users, "prompt_personal",
+                                 [f"idxs_users {idxs_users}", train_start], [],
+                                 list(range(cfg.DATASET.USERS)))
+                    continue
+                print("idxs_users", idxs_users)
+                print("------------local train start epoch:", epoch, "-------------")
+                for idx in idxs_users:
+                    if epoch == 0:
+                        local_trainer.load_state_dict(global_weights, strict=False)
+                    else:
+                        local_trainer.load_state_dict(local_weights_per[idx], strict=False)
+                    local_trainer.train(idx=int(idx), global_epoch=epoch, is_fed=True)
+                    ctx = local_trainer.state_dict()["prompt_learner.ctx"]
+                    local_weights_0[idx] = ctx[:args.avg_prompt].copy()
+                    local_weights_1[idx] = ctx[args.avg_prompt:args.num_prompt].copy()
+                print("------------local train finish epoch:", epoch, "-------------")
+                global_prompt = average_weights(local_weights_0, idxs_users, datanumber_client,
+                                                islist=True)
+                print("------------local test start-------------")
+                results = []
+                for idx in range(cfg.DATASET.USERS):
+                    local_weights_per[idx]["prompt_learner.ctx"] = np.concatenate(
+                        [global_prompt, local_weights_1[idx]], axis=0
+                    ) if len(local_weights_1[idx]) else global_prompt
+                for idx in range(cfg.DATASET.USERS):
+                    local_trainer.load_state_dict(local_weights_per[idx], strict=False)
+                    results.append(local_trainer.test(idx=idx, current_epoch=epoch))
+                summarize(results, epoch)
+
+            elif args.model == "FedOTPLoRA":
+                # FairLoRA: global+local prompts, LoRA on the image encoder, EMA
+                # aggregation with group-weighted lora_S (federated_main.py:604-726)
+                idxs_users = _pick_users(args, epoch)
+                # large-scale eval gating (reference federated_main.py:654-676):
+                # with >= 50 users, per-round testing starts only at epoch 140
+                skip_eval = args.num_users >= 50 and epoch < 140
+                all_users = args.idxs_users_test or list(range(cfg.DATASET.USERS))
+                if runner is not None:
+                    run_parallel(epoch, idxs_users, "ema_personal", [train_start], ["Use EMA"],
+                                 all_users, skip_eval=skip_eval, test_users=all_users)
+                    continue
+                print("------------local train start epoch:", epoch, "-------------")
+                for idx in idxs_users:
+                    if epoch == 0:
+                        local_trainer.load_state_dict(global_weights, strict=False)
+                    else:
+                        local_trainer.load_state_dict(local_weights_per[idx], strict=False)
+                    local_trainer.train(idx=int(idx), global_epoch=epoch, is_fed=True,
+                                        is_last_client=idx == idxs_users[-1])
+                    local_weight = local_trainer.state_dict()
+                    local_weights_0[idx] = local_weight["prompt_learner.ctx"][args.avg_prompt:args.num_prompt].copy()
+                    local_weights_1[idx] = {k: v.copy() for k, v in local_weight.items() if "lora_S" in k}
+                    local_weights[idx] = copy.deepcopy(local_weight)
+                print("------------local train finish epoch:", epoch, "-------------")
+
+                print("Use EMA")
+                global_weights = average_weights_ema(
+                    global_weights, local_weights, idxs_users, datanumber_client,
+                    datanumber_client_by_attr, epoch, max_epoch, shared_half_s=args.shared_half_s)
+
+                print("------------local test start-------------")
+                results = []
+                for idx in all_users:
+                    local_weights_per[idx] = copy.deepcopy(global_weights)
+                    if idx in args.idxs_users_train:
+                        # local embeddings are kept only for explicitly listed
+                        # training users (reference federated_main.py:648-652)
+                        local_weights_per[idx]["prompt_learner.ctx"][args.avg_prompt:args.num_prompt] = local_weights_0[idx]
+                        if cfg.TRAINER.GLP_OT_LORA.LOCAL_S:
+                            for k, v in local_weights_1[idx].items():
+                                local_weights_per[idx][k] = v
+                if skip_eval:
+                    print("Epoch on server :", epoch)
+                    continue
+                for idx in all_users:
+                    local_trainer.load_state_dict(local_weights_per[idx], strict=False)
+                    results.append(local_trainer.test(idx=int(idx), current_epoch=epoch))
+                summarize(results, epoch)
+
+            elif args.model == "FedOTPLinearFT":
+                # global+local prompts, LoRA on the image encoder, plain FedAvg
+                # over the full state; local prompt rows and local lora_S kept per
+                # client (federated_main.py:487-602)
+                idxs_users = _pick_users(args, epoch)
+                all_users = args.idxs_users_test or list(range(cfg.DATASET.USERS))
+                if runner is not None:
+                    run_parallel(epoch, idxs_users, "fedavg_personal", [train_start], [],
+                                 all_users, test_users=all_users)
+                    continue
+                print("------------local train start epoch:", epoch, "-------------")
+                for idx in idxs_users:
+                    if epoch == 0:
+                        local_trainer.load_state_dict(global_weights, strict=False)
+                    else:
+                        local_trainer.load_state_dict(local_weights_per[idx], strict=False)
+                    local_trainer.train(idx=int(idx), global_epoch=epoch, is_fed=True)
+                    local_weight = local_trainer.state_dict()
+                    local_weights_0[idx] = local_weight["prompt_learner.ctx"][args.avg_prompt:args.num_prompt].copy()
+                    local_weights_1[idx] = {k: v.copy() for k, v in local_weight.items() if "lora_S" in k}
+                    local_weights[idx] = copy.deepcopy(local_weight)
+                print("------------local train finish epoch:", epoch, "-------------")
+                global_weights = average_weights(local_weights, list(idxs_users), datanumber_client)
+                print("------------local test start-------------")
+                results = []
+                for idx in all_users:
+                    local_weights_per[idx] = copy.deepcopy(global_weights)
+                    # a client never trained (restricted --idxs_users_train) has
+                    # no local rows yet: it keeps the global ones
+                    if len(local_weights_0[idx]) > 0:
+                        local_weights_per[idx]["prompt_learner.ctx"][args.avg_prompt:args.num_prompt] = local_weights_0[idx]
+                    if cfg.TRAINER.GLP_OT_LORA.LOCAL_S and local_weights_1[idx]:
+                        for k, v in local_weights_1[idx].items():
+                            local_weights_per[idx][k] = v
+                for idx in all_users:
+                    local_trainer.load_state_dict(local_weights_per[idx], strict=False)
+                    results.append(local_trainer.test(idx=int(idx), current_epoch=epoch))
+                summarize(results, epoch)
+
+            else:  # local: no aggregation, a single round (federated_main.py:728-773)
+                m = max(int(args.frac * args.num_users), 1)
+                idxs_users = np.random.choice(range(args.num_users), m, replace=False)
+                print("idxs_users", idxs_users)
+                print("------------local train start epoch:", epoch, "-------------")
+                results = []
+                if runner is not None:
+                    idxs = [int(i) for i in idxs_users]
+                    runner.run_round(epoch, idxs, max_epoch, mode="local_personal",
+                                     test_users=idxs, eval_users=idxs)
+                    results = evaluate_parallel(idxs, epoch)
+                else:
+                    for idx in idxs_users:
+                        local_trainer.load_state_dict(global_weights)
+                        local_trainer.train(idx=int(idx), global_epoch=epoch, is_fed=True)
+                        results.append(local_trainer.test(idx=int(idx), current_epoch=epoch))
+                summarize(results, epoch, with_auc=False)
+                break
+
+            print("Epoch on server :", epoch)
+            print()
+    except BaseException:
+        # a failure while round r+1 is enqueued must not lose round r's
+        # computed output block: resolve the parked flush, then re-raise
+        if pending_flush is not None:
+            flush, pending_flush = pending_flush, None
+            try:
+                flush()
+            except Exception as flush_err:
+                print(f"deferred round flush failed during error unwind: {flush_err!r}",
+                      file=sys.stderr)
+        raise
+
+    if pending_flush is not None:  # the last deferred round
+        pending_flush()
 
     # final per-client weights (federated_main.py:775-778); the local branch
     # never fills the personalization store, so it saves the initial weights
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     for idx in range(cfg.DATASET.USERS):
-        state = local_weights_per[idx] if local_weights_per[idx] else global_weights
+        if runner is not None and args.model != "local":
+            state = runner.final_state_dict(idx)
+        else:
+            state = local_weights_per[idx] if local_weights_per[idx] else global_weights
         path = os.path.join(cfg.OUTPUT_DIR, f"global_client{idx}_final.npz")
         np.savez(path, **{k: np.asarray(v) for k, v in state.items()})
 
@@ -584,7 +714,7 @@ def build_arg_parser():
                         help="comma-separated client ids to test")
     parser.add_argument("--disable_attr", action="store_true")
     parser.add_argument("--parallel_clients", action="store_true",
-                        help="client-parallel rounds (not ported: raises)")
+                        help="client-parallel rounds (fed/parallel_driver.py)")
     parser.add_argument("--logdir", type=str, required=False, default="./logs/")
     parser.add_argument("--root", type=str, default="/DATA/")
     parser.add_argument("--output-dir", type=str, default="output/..")

@@ -168,13 +168,15 @@ def causal_mask(length: int, device=None) -> torch.Tensor:
 
 
 def text_encode(params: dict, prompt_embeds: torch.Tensor, eot_indices: np.ndarray,
-                cfg: CLIPConfig, policy: Policy) -> torch.Tensor:
+                cfg: CLIPConfig, policy: Policy, pool: Optional[tuple] = None) -> torch.Tensor:
     """Text transformer over pre-built prompt embeddings.
 
     prompt_embeds: [N, 77, width]; eot_indices: host [N] positions of the EOT
-    token, used for pooling.  Under causal attention no position up to the
-    last EOT sees a later one, so the sequence is cut after the last EOT
-    (rounded up to a multiple of 8) -- the same values, ~5x less work.
+    token, used for pooling, whose device copy ``pool`` (``pool_index``) a
+    caller that runs the same prompts again makes once.  Under causal
+    attention no position up to the last EOT sees a later one, so the
+    sequence is cut after the last EOT (rounded up to a multiple of 8) --
+    the same values, ~5x less work.
     """
     text = params["text"]
     x = prompt_embeds.to(policy.compute_dtype)
@@ -186,8 +188,17 @@ def text_encode(params: dict, prompt_embeds: torch.Tensor, eot_indices: np.ndarr
     x = transformer(text["blocks"], x, cfg.transformer_heads,
                     mask=causal_mask(l_eff, device=x.device))
     x = layer_norm(text["ln_final"], x)
-    pooled = x[torch.arange(x.shape[0], device=x.device), torch.as_tensor(eot, device=x.device)]
+    rows, cols = pool_index(eot, x.device) if pool is None else pool
+    pooled = x[rows, cols]
     return pooled @ text["text_projection"].to(pooled.dtype)
+
+
+def pool_index(eot_indices: np.ndarray, device) -> tuple:
+    """(row, EOT column) index tensors on ``device`` for ``text_encode``'s
+    pooling.  Made from the host, so on a card the copy waits for the
+    device: a trainer makes them once."""
+    eot = np.asarray(eot_indices)
+    return (torch.arange(len(eot), device=device), torch.as_tensor(eot).long().to(device))
 
 
 def embed_tokens(params: dict, token_ids: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,7 @@ from ..core.device import resolve_device
 from ..data.manager import DataManager, prefetch_to_device
 from ..evaluation.evaluator import build_evaluator
 from ..utils.meters import AverageMeter, MetricMeter
+from ..utils.profiling import profile_trace
 from ..utils.registry import TRAINER_REGISTRY
 from ..utils.tools import mkdir_if_missing
 from .clip_common import fedprox_term
@@ -228,9 +229,19 @@ class TrainerX(SimpleTrainer):
     """Supervised epoch loop over one client's loader
     (TrainerX.run_epoch, trainer.py:685-741).  The epoch's meters stay on
     the trainer (``batch_time``, ``data_time``: host time per batch and the
-    part of it spent waiting for the batch)."""
+    part of it spent waiting for the batch).  Every batch writes the
+    ``train/<metric>/<client>`` and ``train/lr/<client>`` scalars; with
+    ``TRAIN.PROFILE_DIR`` set, the trainer's first epoch is traced there."""
 
     def run_epoch(self, idx, global_epoch):
+        profile_dir = getattr(self.cfg.TRAIN, "PROFILE_DIR", "")
+        if profile_dir and not getattr(self, "_profiled", False):
+            self._profiled = True
+            with profile_trace(profile_dir, self.device):
+                return self._run_epoch(idx, global_epoch)
+        return self._run_epoch(idx, global_epoch)
+
+    def _run_epoch(self, idx, global_epoch):
         self.set_model_mode("train")
         losses = MetricMeter()
         self.batch_time = batch_time = AverageMeter()
@@ -264,6 +275,15 @@ class TrainerX(SimpleTrainer):
                     f"\t{losses}"
                     f"\tlr {self.get_current_lr():.6e}"
                 )
+            # the reference's x-axis (trainer.py:729-734): the local epoch and
+            # the federated round both advance it
+            n_iter = self.epoch * self.num_batches + self.batch_idx
+            if global_epoch >= 0:
+                n_iter += global_epoch * self.max_epoch * self.num_batches
+            if loss_summary:
+                for name, meter in losses.meters.items():
+                    self.write_scalar(f"train/{name}/{idx}", meter.avg, n_iter)
+            self.write_scalar(f"train/lr/{idx}", self.get_current_lr(), n_iter)
             end = time.time()
 
         # The LR schedule steps on the batch where (batch_idx + 1) ==

@@ -5,24 +5,18 @@ lr_scheduler.py:83-155).  Weight decay is coupled (grad += wd * param before
 the momentum and adaptive machinery) for every optimizer but ``adamw``,
 which decays decoupled, as the JAX package's optax chains do.
 
-``sgd``, ``adam``, ``radam`` and ``adamw`` are the ``torch.optim`` classes:
-each computes the optax transform the JAX package builds.  ``amsgrad`` and
-``rmsprop`` are written here, because ``torch.optim`` computes other
-functions than optax for them:
+:class:`FunctionalOptimizer` computes the optax transform of each of the
+six as a pure function over state the caller keeps, as the client-parallel
+rounds need; :func:`build_optimizer` puts the same function behind the
+``torch.optim`` interface for the sequential loop.  Two ``torch.optim``
+classes compute other functions than optax: ``Adam(amsgrad=True)`` takes
+the running max of the second moment before the bias correction (optax
+after it), and ``RMSprop`` multiplies its whole momentum trace by a new
+learning rate (optax scales by the rate before the trace).
 
-* :class:`AMSGrad` keeps the running max of the *bias-corrected* second
-  moment (``optax.amsgrad``); ``torch.optim.Adam(amsgrad=True)`` takes the
-  max before the bias correction.
-* :class:`RMSprop` scales by the learning rate *before* the momentum trace
-  (``optax.rmsprop(..., eps_in_sqrt=False)``), so a change of learning rate
-  leaves the trace's past steps as they were; ``torch.optim.RMSprop``
-  multiplies the whole trace by the new rate.
-
-Each reads its learning rate from ``param_groups`` at every step, so
-:func:`set_learning_rate` works for all six.  Schedules are pure functions
-of the epoch counter evaluated on the host; the reference steps its
-scheduler once per client-local epoch, and ``LRSchedule.lr(epoch_count)``
-keeps that counting.
+Schedules are pure functions of the epoch counter evaluated on the host;
+the reference steps its scheduler once per client-local epoch, and
+``LRSchedule.lr(epoch_count)`` keeps that counting.
 """
 
 from __future__ import annotations
@@ -35,92 +29,118 @@ AVAI_OPTIMS = ["adam", "amsgrad", "sgd", "rmsprop", "radam", "adamw"]
 AVAI_SCHEDS = ["single_step", "multi_step", "cosine"]
 
 
-class AMSGrad(torch.optim.Optimizer):
-    """``optax.amsgrad`` with coupled weight decay: m, v the Adam moments,
-    v_max = max(v_max, v / (1 - b2^t)), step = lr * (m / (1 - b1^t)) /
-    (sqrt(v_max) + eps).  The bias corrections are fp32, as optax's are."""
+class FunctionalOptimizer:
+    """The optax transform of ``OPTIM.NAME`` (the JAX package's
+    ``build_optimizer``) as a pure function over flat ``{path: tensor}``
+    dicts, for the client-parallel rounds: every client owns a state dict of
+    device tensors, its step count among them, so a step is undone with
+    ``torch.where`` and the state stacks per client.  ``update`` returns new
+    tensors and changes none it was given; the learning rate is a host float.
+    State keys are ``count`` and ``<slot>:<path>``."""
 
-    def __init__(self, params, lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0):
-        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+    def __init__(self, optim_cfg):
+        if optim_cfg.NAME not in AVAI_OPTIMS:
+            raise ValueError(f"optim must be one of {AVAI_OPTIMS}, but got {optim_cfg.NAME}")
+        self.name = optim_cfg.NAME
+        self.wd = optim_cfg.WEIGHT_DECAY
+        self.momentum = optim_cfg.MOMENTUM
+        self.nesterov = bool(optim_cfg.SGD_NESTEROV)
+        self.betas = (optim_cfg.ADAM_BETA1, optim_cfg.ADAM_BETA2)
+        self.alpha = optim_cfg.RMSPROP_ALPHA
+        self.eps = 1e-8
+        if self.name == "sgd":
+            self.slots = ("trace",) if self.momentum > 0 else ()
+        elif self.name == "rmsprop":
+            self.slots = ("nu", "trace") if self.momentum > 0 else ("nu",)
+        elif self.name == "amsgrad":
+            self.slots = ("mu", "nu", "nu_max")
+        else:
+            self.slots = ("mu", "nu")
+
+    def init(self, params: dict) -> dict:
+        device = next(iter(params.values())).device
+        state = {"count": torch.zeros((), dtype=torch.int32, device=device)}
+        for slot in self.slots:
+            state.update({f"{slot}:{k}": torch.zeros_like(p) for k, p in params.items()})
+        return state
+
+    def update(self, params: dict, grads: dict, state: dict, lr: float):
+        """One step: ``(new params, new state)``."""
+        b1, b2 = self.betas
+        count = state["count"] + 1
+        countf = count.float()
+        new_state = {"count": count}
+        new_params = {}
+        for k, p in params.items():
+            g = grads[k]
+            if self.wd and self.name != "adamw":  # coupled decay (add_decayed_weights)
+                g = g + self.wd * p
+            if self.name == "sgd":
+                if self.momentum > 0:
+                    t = g + self.momentum * state[f"trace:{k}"]
+                    new_state[f"trace:{k}"] = t
+                    g = g + self.momentum * t if self.nesterov else t
+                u = -lr * g
+            elif self.name == "rmsprop":  # eps outside the sqrt; lr before the trace
+                nu = (1 - self.alpha) * g * g + self.alpha * state[f"nu:{k}"]
+                new_state[f"nu:{k}"] = nu
+                u = -lr * (g / (torch.sqrt(nu) + self.eps))
+                if self.momentum > 0:
+                    u = u + self.momentum * state[f"trace:{k}"]
+                    new_state[f"trace:{k}"] = u
+            else:
+                mu = (1 - b1) * g + b1 * state[f"mu:{k}"]
+                nu = (1 - b2) * (g * g) + b2 * state[f"nu:{k}"]
+                new_state[f"mu:{k}"], new_state[f"nu:{k}"] = mu, nu
+                mu_hat = mu / (1 - torch.pow(b1, countf))
+                nu_hat = nu / (1 - torch.pow(b2, countf))
+                if self.name == "amsgrad":
+                    nu_hat = torch.maximum(state[f"nu_max:{k}"], nu_hat)
+                    new_state[f"nu_max:{k}"] = nu_hat
+                u = mu_hat / (torch.sqrt(nu_hat) + self.eps)
+                if self.name == "radam":
+                    ro_inf = 2.0 / (1 - b2) - 1
+                    b2t = torch.pow(b2, countf)
+                    ro = ro_inf - 2 * countf * b2t / (1 - b2t)
+                    r = torch.sqrt((ro - 4) * (ro - 2) * ro_inf
+                                   / ((ro_inf - 4) * (ro_inf - 2) * ro))
+                    u = torch.where(ro >= 5.0, r * u, mu_hat)
+                elif self.name == "adamw":
+                    u = u + self.wd * p
+                u = -lr * u
+            new_params[k] = p + u
+        return new_params, new_state
+
+
+class Optimizer(torch.optim.Optimizer):
+    """:class:`FunctionalOptimizer` behind the ``torch.optim`` interface:
+    ``step()`` updates every parameter that has a gradient in place, from
+    its own state in ``self.state[p]`` (``count`` and the slots of the
+    path ``param``), at its group's ``lr``."""
+
+    def __init__(self, params, optim_cfg, lr: float):
+        self.functional = FunctionalOptimizer(optim_cfg)
+        super().__init__(params, dict(lr=lr))
 
     @torch.no_grad()
     def step(self, closure=None):
+        fn = self.functional
         for group in self.param_groups:
-            b1, b2 = group["betas"]
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                g = p.grad
-                if group["weight_decay"]:
-                    g = g + group["weight_decay"] * p
-                st = self.state[p]
-                if not st:
-                    st["step"] = 0
-                    for key in ("exp_avg", "exp_avg_sq", "max_exp_avg_sq"):
-                        st[key] = torch.zeros_like(p)
-                st["step"] += 1
-                m, v, v_max = st["exp_avg"], st["exp_avg_sq"], st["max_exp_avg_sq"]
-                m.mul_(b1).add_(g, alpha=1 - b1)
-                v.mul_(b2).addcmul_(g, g, value=1 - b2)
-                bc1 = (1 - torch.tensor(b1, dtype=torch.float32) ** st["step"]).item()
-                bc2 = (1 - torch.tensor(b2, dtype=torch.float32) ** st["step"]).item()
-                torch.maximum(v_max, v / bc2, out=v_max)
-                p.add_((m / bc1) / (v_max.sqrt() + group["eps"]), alpha=-group["lr"])
+                state = self.state[p]
+                if not state:
+                    state.update(fn.init({"param": p}))
+                new_p, new_state = fn.update({"param": p}, {"param": p.grad}, state, group["lr"])
+                p.copy_(new_p["param"])
+                state.update(new_state)
 
 
-class RMSprop(torch.optim.Optimizer):
-    """``optax.rmsprop(eps_in_sqrt=False)`` with coupled weight decay:
-    v = alpha * v + (1 - alpha) * g^2, u = lr * g / (sqrt(v) + eps), then
-    with momentum the trace b = momentum * b + u, and the step is u (or b)."""
-
-    def __init__(self, params, lr, alpha=0.99, eps=1e-8, momentum=0.0, weight_decay=0.0):
-        super().__init__(params, dict(lr=lr, alpha=alpha, eps=eps, momentum=momentum,
-                                      weight_decay=weight_decay))
-
-    @torch.no_grad()
-    def step(self, closure=None):
-        for group in self.param_groups:
-            alpha, momentum = group["alpha"], group["momentum"]
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                g = p.grad
-                if group["weight_decay"]:
-                    g = g + group["weight_decay"] * p
-                st = self.state[p]
-                if not st:
-                    st["square_avg"] = torch.zeros_like(p)
-                    if momentum > 0:
-                        st["momentum_buffer"] = torch.zeros_like(p)
-                v = st["square_avg"]
-                v.mul_(alpha).addcmul_(g, g, value=1 - alpha)
-                u = group["lr"] * (g / (v.sqrt() + group["eps"]))
-                if momentum > 0:
-                    u = st["momentum_buffer"].mul_(momentum).add_(u)
-                p.sub_(u)
-
-
-def build_optimizer(params, optim_cfg, lr: float) -> torch.optim.Optimizer:
+def build_optimizer(params, optim_cfg, lr: float) -> Optimizer:
     """The optimizer ``OPTIM.NAME`` over ``params``, starting at learning
     rate ``lr``."""
-    name = optim_cfg.NAME
-    if name not in AVAI_OPTIMS:
-        raise ValueError(f"optim must be one of {AVAI_OPTIMS}, but got {name}")
-    wd, momentum = optim_cfg.WEIGHT_DECAY, optim_cfg.MOMENTUM
-    betas = (optim_cfg.ADAM_BETA1, optim_cfg.ADAM_BETA2)
-    if name == "sgd":
-        return torch.optim.SGD(params, lr=lr, momentum=momentum, weight_decay=wd,
-                               nesterov=bool(optim_cfg.SGD_NESTEROV))
-    if name == "adam":
-        return torch.optim.Adam(params, lr=lr, betas=betas, weight_decay=wd)
-    if name == "amsgrad":
-        return AMSGrad(params, lr=lr, betas=betas, weight_decay=wd)
-    if name == "rmsprop":
-        return RMSprop(params, lr=lr, alpha=optim_cfg.RMSPROP_ALPHA,
-                       momentum=max(momentum, 0.0), weight_decay=wd)
-    if name == "radam":
-        return torch.optim.RAdam(params, lr=lr, betas=betas, weight_decay=wd)
-    return torch.optim.AdamW(params, lr=lr, betas=betas, weight_decay=wd)
+    return Optimizer(params, optim_cfg, lr)
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> torch.optim.Optimizer:

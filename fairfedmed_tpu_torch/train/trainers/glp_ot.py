@@ -33,17 +33,17 @@ import torch
 import torch.nn.functional as F
 
 from ...adapters.lora import group_mix, init_lora
-from ...core.pytree import flatten_paths
+from ...core.pytree import flatten_paths, unflatten_like
 from ...evaluation import metrics as eval_metrics
-from ...models.clip_model import l2_normalize, text_encode, vit_encode
+from ...models.clip_model import l2_normalize, pool_index, text_encode, vit_encode
 from ...models.prompt_learner import assemble_prompts, init_prompt_learner
 from ...models.resnet_clip import resnet_encode
 from ...ops.sinkhorn import entropic_cot, sinkhorn
 from ...utils.registry import TRAINER_REGISTRY
 from ..clip_common import (accuracy_from_logits, cross_entropy, fairness_confidence_loss,
-                           load_clip_bundle)
+                           fedprox_term, load_clip_bundle)
 from ..engine import TrainerX
-from ..optim import build_lr_scheduler, build_optimizer, set_learning_rate
+from ..optim import FunctionalOptimizer, build_lr_scheduler, build_optimizer, set_learning_rate
 
 MEDICAL_DATASETS = ("FairFedMed", "FedChexMimic", "WangGrant")
 MODALITY_3D = ("oct_bscans", "oct_bscans_3d", "mac_onh", "onh_mac")
@@ -65,6 +65,7 @@ GROUP_TABLES = {
 }
 LORA_PARTS = ("c_fc", "c_proj")
 ATTNPOOL_PROJ = ("q_proj", "k_proj", "v_proj", "c_proj")
+BN_STATS = "__bn_stats__"  # the ResNet running statistics in a client's parallel state
 
 
 def _host_copies(named: dict) -> dict:
@@ -218,27 +219,31 @@ class GLPOTBase(TrainerX):
         for p in _leaves(self.trainable):
             p.requires_grad_(True)
 
+        # device constants, made once: a copy from the host inside a step
+        # would synchronise with the device
+        self._pixel_mean = torch.tensor(cfg.INPUT.PIXEL_MEAN).reshape(1, -1, 1, 1).to(self.device)
+        self._pixel_std = torch.tensor(cfg.INPUT.PIXEL_STD).reshape(1, -1, 1, 1).to(self.device)
+        self._eot_pool = pool_index(self.prompt_state.eot_indices, self.device)
+
         self.lr_sched = build_lr_scheduler(cfg.OPTIM)
         # start at the schedule's epoch-0 LR (warmup)
         self.optimizer = build_optimizer(_leaves(self.trainable), cfg.OPTIM, self.lr_sched.lr(0))
+        self.parallel_optimizer = FunctionalOptimizer(cfg.OPTIM)
         single = bool(getattr(lc, "SINGLE_OPT_STEP", False))
         self.opt_steps_per_batch = 1 if single or not lc.UNFREEZE_IMAGE_ENCODER else 2
         self.lr_step_multiplier = self.opt_steps_per_batch
 
     # ------------------------------------------------------------- forward
-    def _preprocess(self, image):
+    def _preprocess(self, image, trainable):
         """CustomCLIP.forward's head (GLP_OT_SVLoRA.py:677-693): /255, for 3D
         volumes the slice projector and a per-slice min-max, then the CLIP
         mean/std.  The projector's /255 is folded into its (tiny) weight; the
         conv runs in the compute type, the bias and min-max in fp32."""
-        cfg = self.cfg
-        mean = torch.tensor(cfg.INPUT.PIXEL_MEAN, device=self.device).reshape(1, -1, 1, 1)
-        std = torch.tensor(cfg.INPUT.PIXEL_STD, device=self.device).reshape(1, -1, 1, 1)
         x = image.float()
         if self.is_3d_input:
             _, _, h, w = x.shape
             x = x.reshape(-1, self.dim_per_3d_slice, h, w)  # volume v -> rows v*S .. v*S+S-1
-            p = self.trainable["proj_per_3d_slice"]
+            p = trainable["proj_per_3d_slice"]
             dt = self.policy.compute_dtype
             x = F.conv2d(x.to(dt), (p["weight"] / 255.0).to(dt), padding=2).float() \
                 + p["bias"].reshape(1, -1, 1, 1)
@@ -247,32 +252,35 @@ class GLPOTBase(TrainerX):
             x = (x - mn) / (mx - mn + 1e-5)
         else:
             x = x / 255.0
-        return (x - mean) / std
+        return (x - self._pixel_mean) / self._pixel_std
 
-    def _forward(self, image, attr, train):
-        """CustomCLIP forward (GLP_OT_SVLoRA.py:677-757).  Returns (logits
-        [b, n_cls], the OT plan's validity as a tensor or None, new BN
-        statistics)."""
+    def _forward(self, image, attr, train, trainable=None, stats=None):
+        """CustomCLIP forward (GLP_OT_SVLoRA.py:677-757) under ``trainable``
+        and the BatchNorm statistics ``stats`` (default: the trainer's own).
+        Returns (logits [b, n_cls], the OT plan's validity as a tensor or
+        None, new BN statistics)."""
         cfg_t = self.cfg.TRAINER.GLP_OT
         policy = self.policy
+        trainable = self.trainable if trainable is None else trainable
+        stats = self.stats if stats is None else stats
         visual = self.frozen["visual"]
-        if "visual_ln_pre" in self.trainable:  # the trainable override (GLP_OT.py:414-426)
-            visual = {**visual, "ln_pre": self.trainable["visual_ln_pre"]}
-        x = self._preprocess(image)  # [B', 3, H, W]; B' = b * slices for 3D volumes
+        if "visual_ln_pre" in trainable:  # the trainable override (GLP_OT.py:414-426)
+            visual = {**visual, "ln_pre": trainable["visual_ln_pre"]}
+        x = self._preprocess(image, trainable)  # [B', 3, H, W]; B' = b * slices for 3D volumes
 
-        lora = self.trainable.get("image_encoder_lora")
+        lora = trainable.get("image_encoder_lora")
         attr_mix = None
         if lora is not None:
             # per volume when attrs exist; the adapters repeat it over slices
             batch = x.shape[0] if attr is None else attr.shape[0]
             attr_mix = group_mix(attr, self.num_groups, batch, device=self.device)
 
-        new_stats = self.stats
+        new_stats = stats
         if self.backbone_type == "resnet":
             tokens, new_stats = resnet_encode(
-                visual, self.trainable.get("visual_bn", self.frozen.get("visual_bn")),
-                self.stats, x, self.bundle.rn_cfg, policy, train=train, return_tokens=True,
-                lora=lora, attnpool_lora=self.trainable.get("attnpool_lora"),
+                visual, trainable.get("visual_bn", self.frozen.get("visual_bn")),
+                stats, x, self.bundle.rn_cfg, policy, train=train, return_tokens=True,
+                lora=lora, attnpool_lora=trainable.get("attnpool_lora"),
                 attr_mix=attr_mix, lora_scaling=self.lora_scaling)
         else:
             # the JAX package runs a slice batch in chunks of b rows (a TPU
@@ -283,10 +291,10 @@ class GLPOTBase(TrainerX):
         image_feats = l2_normalize(tokens[:, 1:])  # [B', M, d]
         bp, m, d = image_feats.shape
 
-        ctx = self.trainable["prompt_learner"]["ctx"].to(policy.compute_dtype)
+        ctx = trainable["prompt_learner"]["ctx"].to(policy.compute_dtype)
         prompts = assemble_prompts(ctx, self.prompt_state)
         text_feats = text_encode(self.frozen, prompts, self.prompt_state.eot_indices,
-                                 self.bundle.clip_cfg, policy)
+                                 self.bundle.clip_cfg, policy, pool=self._eot_pool)
         text_feats = l2_normalize(text_feats.reshape(self.N, self.n_cls, d))
 
         # patch-prompt cosine similarity in fp32: [B', M, N, n_cls] -> [B'*n_cls, M, N]
@@ -316,16 +324,20 @@ class GLPOTBase(TrainerX):
         sim_op = sim_op.reshape(image.shape[0], -1, self.n_cls).mean(1)
         return self.frozen["logit_scale"].float().exp() * sim_op, valid, new_stats
 
-    def _loss(self, logits, label, attr):
+    def _task_loss(self, logits, label, attr):
         loss = cross_entropy(logits, label)
         lam = self.cfg.TRAINER.LAMBDA_FAIRNESS if self.use_lora else 0.0
         if not self.disable_attr and lam != 0.0:
             diff = bool(getattr(self.cfg.TRAINER.GLP_OT_LORA, "DIFFERENTIABLE_FAIRNESS", False))
             loss = loss + lam * fairness_confidence_loss(logits, label, attr, self.num_groups,
                                                          differentiable=diff)
+        return loss
+
+    def _loss(self, logits, label, attr):
         # FedProx: an extension, as in the JAX package (the reference GLP
         # trainers take no FedProx)
-        return self.with_fedprox(loss, self.trainable["prompt_learner"]["ctx"])
+        return self.with_fedprox(self._task_loss(logits, label, attr),
+                                 self.trainable["prompt_learner"]["ctx"])
 
     # ------------------------------------------------------------- hot loop
     def forward_backward(self, batch):
@@ -383,6 +395,100 @@ class GLPOTBase(TrainerX):
     @torch.no_grad()
     def model_inference(self, inp, attr=None):
         return self._forward(inp, attr, train=False)[0].float()
+
+    # ------------------------------------------------------------- client-parallel rounds
+    def _parallel_tree(self):
+        if self.backbone_type == "resnet":
+            return {**self.trainable, BN_STATS: self.stats}
+        return self.trainable
+
+    def parallel_trainable(self) -> dict:
+        """What the client-parallel runner keeps per client, as a flat
+        ``{path: tensor}`` dict (JAX ``parallel_trainable``): the trainable
+        tree and, on ResNet, the BatchNorm running statistics under
+        ``__bn_stats__``, so each client's statistics stay its own and
+        aggregate with its state."""
+        return {k: v.detach() for k, v in flatten_paths(self._parallel_tree()).items()}
+
+    def parallel_opt_state(self) -> dict:
+        """A fresh ``parallel_optimizer`` state over the trainable tree."""
+        return self.parallel_optimizer.init(
+            {k: v.detach() for k, v in flatten_paths(self.trainable).items()})
+
+    @torch.no_grad()
+    def adopt_parallel_trainable(self, flat: dict):
+        """Copy one client's ``parallel_trainable`` state into the trainer's
+        own tensors (for evaluation and the final save)."""
+        for k, t in flatten_paths(self._parallel_tree()).items():
+            t.copy_(flat[k])
+
+    def _unflatten(self, flat: dict):
+        tree = unflatten_like(self._parallel_tree(), flat)
+        stats = tree.pop(BN_STATS, {}) if self.backbone_type == "resnet" else self.stats
+        return tree, stats
+
+    def make_parallel_local_step(self, fedprox_mu=None):
+        """One client's step for the client-parallel round (JAX
+        ``make_parallel_local_step``, glp_ot.py:483-546):
+        ``local_step(params, opt_state, batch, lr, ctx_global) -> (params,
+        opt_state, metrics)`` over flat dicts (``parallel_trainable``,
+        ``parallel_optimizer.init``), returning new tensors.  The optimizer
+        steps ``opt_steps_per_batch`` times on one gradient; where the OT
+        plan is invalid the parameters and the optimizer state keep their
+        old values by ``torch.where``, with no host fetch.  ResNet running
+        statistics take the forward's, valid or not.  ``metrics`` stays on
+        the device: [loss * valid, valid, acc * valid].  With ``fedprox_mu``
+        the loss adds the FedProx term toward ``ctx_global``, the round's
+        global context."""
+        opt, n_opt = self.parallel_optimizer, self.opt_steps_per_batch
+        differentiable = bool(getattr(self.cfg.TRAINER, "DIFFERENTIABLE_FEDPROX", False))
+
+        def local_step(params, opt_state, batch, lr, ctx_global=None):
+            leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()
+                      if not k.startswith(BN_STATS)}
+            tree, stats = self._unflatten({**params, **leaves})
+            logits, valid, new_stats = self._forward(batch["img"], batch.get("attr"), train=True,
+                                                     trainable=tree, stats=stats)
+            loss = self._task_loss(logits, batch["label"], batch.get("attr"))
+            if fedprox_mu is not None:
+                loss = loss + fedprox_term(tree["prompt_learner"]["ctx"], ctx_global, fedprox_mu,
+                                           differentiable=differentiable)
+            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+            with torch.no_grad():
+                grads = {k: torch.zeros_like(v) if g is None else g
+                         for (k, v), g in zip(leaves.items(), grads)}
+                old = {k: v.detach() for k, v in leaves.items()}
+                new_p, new_o = old, opt_state
+                for _ in range(n_opt):
+                    new_p, new_o = opt.update(new_p, grads, new_o, lr)
+                loss = loss.detach().float()
+                acc = accuracy_from_logits(logits.detach(), batch["label"])
+                if valid is None:
+                    metrics = torch.stack([loss, torch.ones_like(loss), acc])
+                else:  # an invalid plan keeps the old parameters and optimizer state
+                    new_p = {k: torch.where(valid, new_p[k], old[k]) for k in old}
+                    new_o = {k: torch.where(valid, new_o[k], opt_state[k]) for k in opt_state}
+                    zero = torch.zeros_like(loss)
+                    metrics = torch.stack([torch.where(valid, loss, zero), valid.float(),
+                                           torch.where(valid, acc, zero)])
+                if self.backbone_type == "resnet":
+                    new_p.update({f"{BN_STATS}.{k}": v.detach()
+                                  for k, v in flatten_paths(new_stats).items()})
+            return new_p, new_o, metrics
+
+        return local_step
+
+    def make_parallel_infer(self):
+        """``infer(params, image, attr) -> logits`` under one client's flat
+        state (JAX ``make_parallel_infer``): ResNet evaluates with the
+        client's own running statistics."""
+
+        @torch.no_grad()
+        def infer(params, image, attr):
+            tree, stats = self._unflatten(params)
+            return self._forward(image, attr, train=False, trainable=tree, stats=stats)[0].float()
+
+        return infer
 
     # ------------------------------------------------------------- weights
     def _named_state(self) -> dict:

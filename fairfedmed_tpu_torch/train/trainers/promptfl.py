@@ -18,7 +18,8 @@ the text tower only.  On the medical datasets the image tower takes the
 loader's raw 0-255 pixels, as the reference forward does;
 ``TRAINER.PROMPTFL.NORMALIZE_MEDICAL_INPUT`` opts into CLIP's /255 and
 mean/std.  The logits are ``exp(logit_scale) * (im @ txt^T)`` over the
-l2-normalised features, the product in fp32.
+l2-normalised features, the product in the compute type and then cast to
+fp32, as the JAX package computes it.
 """
 
 from __future__ import annotations
@@ -27,13 +28,13 @@ import numpy as np
 import torch
 
 from ...core.pytree import flatten_paths
-from ...models.clip_model import l2_normalize, text_encode, vit_encode
+from ...models.clip_model import l2_normalize, pool_index, text_encode, vit_encode
 from ...models.prompt_learner import assemble_prompts, init_prompt_learner
 from ...models.resnet_clip import resnet_encode
 from ...utils.registry import TRAINER_REGISTRY
-from ..clip_common import accuracy_from_logits, cross_entropy, load_clip_bundle
+from ..clip_common import accuracy_from_logits, cross_entropy, fedprox_term, load_clip_bundle
 from ..engine import TrainerX
-from ..optim import build_lr_scheduler, build_optimizer, set_learning_rate
+from ..optim import FunctionalOptimizer, build_lr_scheduler, build_optimizer, set_learning_rate
 from .glp_ot import MEDICAL_DATASETS
 
 
@@ -77,20 +78,28 @@ class _CosineCLIPTrainer(TrainerX):
         self.ctx = self.trainable["prompt_learner"]["ctx"]
         self.ctx.requires_grad_(self.trainable_prompt)
 
+        # device constants, made once: a copy from the host inside a step
+        # would synchronise with the device
+        self._pixel_mean = torch.tensor(cfg.INPUT.PIXEL_MEAN).reshape(1, -1, 1, 1).to(self.device)
+        self._pixel_std = torch.tensor(cfg.INPUT.PIXEL_STD).reshape(1, -1, 1, 1).to(self.device)
+        self._eot_pool = pool_index(self.prompt_state.eot_indices, self.device)
+
         self.lr_sched = build_lr_scheduler(cfg.OPTIM)
         # start at the schedule's epoch-0 LR (warmup)
         self.optimizer = build_optimizer([self.ctx], cfg.OPTIM, self.lr_sched.lr(0))
+        self.parallel_optimizer = FunctionalOptimizer(cfg.OPTIM)
 
     # ------------------------------------------------------------- forward
     def _preprocess(self, image):
         x = image.float()
         if getattr(self.cfg.TRAINER[self.prec_node], "NORMALIZE_MEDICAL_INPUT", False):
-            mean = torch.tensor(self.cfg.INPUT.PIXEL_MEAN, device=self.device).reshape(1, -1, 1, 1)
-            std = torch.tensor(self.cfg.INPUT.PIXEL_STD, device=self.device).reshape(1, -1, 1, 1)
-            x = (x / 255.0 - mean) / std
+            x = (x / 255.0 - self._pixel_mean) / self._pixel_std
         return x
 
-    def _forward(self, image):
+    def _forward(self, image, ctx=None):
+        """Logits [b, n_cls] for ``image`` under the prompt context ``ctx``
+        (default: the trainer's own)."""
+        ctx = self.ctx if ctx is None else ctx
         x = self._preprocess(image)
         frozen = self.frozen
         if self.backbone_type == "resnet":
@@ -100,12 +109,14 @@ class _CosineCLIPTrainer(TrainerX):
                                       return_tokens=False)
         else:
             pooled = vit_encode(frozen["visual"], x, self.bundle.clip_cfg, self.policy)
+        cd = self.policy.compute_dtype
         pooled = l2_normalize(pooled)
-        prompts = assemble_prompts(self.ctx.to(self.policy.compute_dtype), self.prompt_state)
+        prompts = assemble_prompts(ctx.to(cd), self.prompt_state)
         text = text_encode(frozen, prompts, self.prompt_state.eot_indices, self.bundle.clip_cfg,
-                           self.policy)
+                           self.policy, pool=self._eot_pool)
         text = l2_normalize(text)
-        return frozen["logit_scale"].float().exp() * (pooled.float() @ text.float().T)
+        # the product in the compute type, then fp32 (JAX promptfl.py:117-118)
+        return frozen["logit_scale"].float().exp() * (pooled.to(cd) @ text.to(cd).T).float()
 
     def _loss(self, logits, label):
         return self.with_fedprox(cross_entropy(logits, label), self.ctx)
@@ -137,6 +148,58 @@ class _CosineCLIPTrainer(TrainerX):
     @torch.no_grad()
     def model_inference(self, inp, attr=None):
         return self._forward(inp)
+
+    # ------------------------------------------------------------- client-parallel rounds
+    def parallel_trainable(self) -> dict:
+        """What the client-parallel runner keeps per client: the prompt
+        context (both towers are frozen, BatchNorm statistics included)."""
+        return {"prompt_learner.ctx": self.ctx.detach()}
+
+    def parallel_opt_state(self) -> dict:
+        """A fresh ``parallel_optimizer`` state over the context."""
+        return self.parallel_optimizer.init(self.parallel_trainable())
+
+    @torch.no_grad()
+    def adopt_parallel_trainable(self, flat: dict):
+        self.ctx.copy_(flat["prompt_learner.ctx"])
+
+    def make_parallel_local_step(self, fedprox_mu=None):
+        """One client's step for the client-parallel round (JAX
+        promptfl.py:150-185): ``local_step(params, opt_state, batch, lr,
+        ctx_global) -> (params, opt_state, metrics)`` over flat dicts, new
+        tensors out, ``metrics`` = [loss, 1, acc] on the device.  With
+        ``fedprox_mu`` the loss adds the FedProx term toward
+        ``ctx_global``."""
+        opt = self.parallel_optimizer
+        differentiable = bool(getattr(self.cfg.TRAINER, "DIFFERENTIABLE_FEDPROX", False))
+
+        def local_step(params, opt_state, batch, lr, ctx_global=None):
+            ctx = params["prompt_learner.ctx"].detach().requires_grad_(True)
+            logits = self._forward(batch["img"], ctx)
+            loss = cross_entropy(logits, batch["label"])
+            if fedprox_mu is not None:
+                loss = loss + fedprox_term(ctx, ctx_global, fedprox_mu,
+                                           differentiable=differentiable)
+            (grad,) = torch.autograd.grad(loss, [ctx])
+            with torch.no_grad():
+                new_p, new_o = opt.update({"prompt_learner.ctx": ctx.detach()},
+                                          {"prompt_learner.ctx": grad}, opt_state, lr)
+                loss = loss.detach().float()
+                metrics = torch.stack([loss, torch.ones_like(loss),
+                                       accuracy_from_logits(logits.detach(), batch["label"])])
+            return new_p, new_o, metrics
+
+        return local_step
+
+    def make_parallel_infer(self):
+        """``infer(params, image, attr) -> logits`` under one client's
+        context."""
+
+        @torch.no_grad()
+        def infer(params, image, attr):
+            return self._forward(image, params["prompt_learner.ctx"])
+
+        return infer
 
     # ------------------------------------------------------------- weights
     def state_dict(self):

@@ -323,8 +323,11 @@ def test_cli_matches_jax_cli_on_launcher_flags(launcher_root, tmp_path, monkeypa
 
 
 def test_unported_branches_raise(fixture_root, tmp_path, restore_stdout):
+    # --parallel_clients runs (tests/test_torch_port_parallel*.py); its round
+    # checkpoints do not
     for extra, match in ((["--trainer", "Baseline"], "not ported yet"),
-                         (["--parallel_clients"], "not ported yet"),
+                         (["--parallel_clients", "--resume", str(tmp_path / "ckpt")],
+                          "not ported yet"),
                          (["--model", "FedBN"], "Unknown aggregation model")):
         args = tfm.build_arg_parser().parse_args(small_argv(fixture_root, tmp_path, extra=extra))
         with pytest.raises(NotImplementedError, match=match):

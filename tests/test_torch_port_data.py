@@ -170,9 +170,13 @@ def test_index_sidecar_and_unported_paths(roots, monkeypatch):
     assert len(tds) == 10
     assert tffm.group_histogram(np.array([2, -1, 0, 2])) == jffm.group_histogram(
         np.array([2, -1, 0, 2])) == [1, 0, 2]
+    # the uint8 decode (ported): equal to the JAX package's and to load_item
     ds = tffm.FairFedMedDataset(base, 1, "race", ATTRIBUTES, "slo_fundus", 32, train=False)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ds.load_item_u8(0)
+    jds = jffm.FairFedMedDataset(base, 1, "race", ATTRIBUTES, "slo_fundus", 32, train=False)
+    got, want = ds.load_item_u8(0), jds.load_item_u8(0)
+    assert got[0].dtype == want[0].dtype == np.uint8
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[0].astype(np.float32), ds.load_item(0)[0])
     with pytest.raises(NotImplementedError):
         tffm.FairFedMedDataset(base, 1, "race", ATTRIBUTES, "fundus_typo", 32)
 
@@ -283,12 +287,22 @@ def test_prefetch_to_device_on_cpu_and_unported_options(roots):
         for k in ("img", "label", "attrs"):
             assert isinstance(g[k], torch.Tensor) and g[k].device.type == "cpu"
             np.testing.assert_array_equal(g[k].numpy(), w[k])
-    for key, value in (("DATASET.NAME", "Cifar10"), ("DATALOADER.TRAIN_X.SAMPLER",
-                                                      "RandomDomainSampler")):
+    _, cfg = _cfgs(roots[32])
+    cfg.merge_from_list(["DATASET.NAME", "Cifar10"])
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tmanager.DataManager(cfg)
+    # a structured sampler on a dataset without a Datum list shuffles at
+    # random (the samplers are not ported; FairFedMed needs none): the same
+    # batches as RandomSampler's from the same seed
+    batches = {}
+    for stype in ("RandomSampler", "RandomDomainSampler"):
         _, cfg = _cfgs(roots[32])
-        cfg.merge_from_list([key, value])
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tmanager.DataManager(cfg)
+        cfg.merge_from_list(["DATALOADER.TRAIN_X.SAMPLER", stype])
+        np.random.seed(3)
+        batches[stype] = [b["label"] for b in tmanager.DataManager(cfg).fed_train_loader_x_dict[0]]
+    assert len(batches["RandomSampler"]) > 0
+    for got, want in zip(batches["RandomDomainSampler"], batches["RandomSampler"], strict=True):
+        np.testing.assert_array_equal(got, want)
 
 
 class _ListDataset:

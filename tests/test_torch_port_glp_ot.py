@@ -173,8 +173,8 @@ def test_invalid_plan_skips_the_step_on_both_sides(root):
     def params_and_momentum(tr):
         state = {k: v for k, v in tr.state_dict().items() if "running_" not in k}
         if tr is ttr:
-            mom = [tr.optimizer.state[p]["momentum_buffer"].clone()
-                   for g in tr.optimizer.param_groups for p in g["params"]]
+            mom = [v.clone() for g in tr.optimizer.param_groups for p in g["params"]
+                   for v in tr.optimizer.state[p].values()]
             return state, [m.numpy() for m in mom]
         return state, [np.array(x, copy=True) for x in jax.tree_util.tree_leaves(tr.opt_state)]
 

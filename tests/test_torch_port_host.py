@@ -150,7 +150,7 @@ def test_loss_terms_match(differentiable):
 
 
 def test_sgd_two_steps_match_optax_chain():
-    """torch.optim.SGD with coupled decay == the JAX package's optax chain,
+    """The port's SGD with coupled decay == the JAX package's optax chain,
     stepped twice on the same gradient as the FairLoRA trainer does."""
     import optax
 

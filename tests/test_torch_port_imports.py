@@ -48,3 +48,12 @@ def test_no_port_file_names_jax_or_the_jax_package():
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text()) or "fairfedmed_tpu." in f.read_text()]
     assert not offenders, offenders
+
+
+def test_the_client_parallel_modules_are_guarded():
+    """The modules of the client-parallel rounds are among those the guard
+    above imports and scans."""
+    mods = set(_port_modules())
+    for name in ("fed.parallel", "fed.parallel_driver", "fed.sampler", "utils.profiling"):
+        assert f"fairfedmed_tpu_torch.{name}" in mods, name
+        assert (PORT / (name.replace(".", "/") + ".py")).read_text().count("import jax") == 0
