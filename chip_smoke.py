@@ -10,7 +10,9 @@ Phases, each printing one JSON line:
    all at once).
 2. ``kernel_checks``: each attention kernel (forward, backward) against its
    plain PyTorch version at the paths' shapes (the SLO and OCT vision
-   batches, the text tower), fp32 (TF32 off) and bf16, with the max error
+   batches, the text tower, and the widest text shape: PromptFL on
+   CIFAR-100, 100 classes x 8 heads at the EOT-cut length), fp32 (TF32 off)
+   and bf16, with the max error
    beside its tolerance; times of the kernel, the plain version and
    ``scaled_dot_product_attention`` (a yardstick the port never calls).
    Times are device time from torch.profiler (the kernels' summed
@@ -65,8 +67,8 @@ Phases, each printing one JSON line:
    ViT-B/16 bf16.  The FedChexMimic launchers' flags are read from
    ``scripts/fedchexmimic/``, with three changed, as each phase's line
    says: ``--dataset-config-file configs/datasets/fairfedmed.yaml`` and
-   FairFedMed's ``--attributes`` / ``--attribute_type race`` (their own
-   dataset is not ported, and the fixture has no ``age``):
+   FairFedMed's ``--attributes`` / ``--attribute_type race`` (9 runs them
+   on their own dataset):
    - ``promptfl_path``: ``promptfl_fedchexmimic.sh`` (fedavg, PromptFL),
      2 rounds; then a profiled step;
    - ``fedotp_path``: ``fedotp_fedchexmimic.sh`` (FedOTP, prompt-only
@@ -97,6 +99,31 @@ Phases, each printing one JSON line:
    a round after the first waits for the device.  Beside them: per round
    the dispatch and resolve host times and the host data time, cache bytes
    and type, peak memory.
+9. FairFedMed-Chest and CIFAR, through the CLI as in 5 with each launcher's
+   own dataset config:
+   - ``chexmimic_path``: a FedChexMimic fixture (2 sites x 64 train / 100
+     test grayscale JPEGs, CheXpert 320x320 and MIMIC 336x336, copies of
+     the committed ``tests/data/fedchexmimic_jpeg/``; race / gender / age
+     drawn inside the trainer's group tables), then ``jpeg_check``: the
+     JPEG decoder the port picks (libjpeg or PIL; none raises) held against
+     ``decoded.npz`` within 1 grey level, and its decode and resize to 224
+     per image; then ``scripts/fedchexmimic/fairfedlora_fedchexmimic.sh``
+     without its ``--parallel_clients``, 2 rounds;
+   - ``parallel_chexmimic``: the same launcher with its
+     ``--parallel_clients``, 2 rounds (the resized X-rays cached as fp32),
+     then ``fairfedlora_fedchexmimic_local.sh``, ``promptfl_fedchexmimic.sh``
+     and ``fedotp_fedchexmimic.sh`` on their own data, 1 round each;
+   - ``cifar_path``: CIFAR-10 (5000 train / 1000 test 32x32x3 uint8,
+     pickles written with numpy) under the CLI's 10 users, beta 0.1 and
+     ``--partition noniid-labeldir``: the PromptFL launcher's flags
+     (fedavg) and the FedOTP launcher's (GLP_OT, COT), 1 round each with
+     ``--parallel_clients``; then PromptFL on a CIFAR-100 fixture of the
+     same size under the default ``noniid-labeldir100``, 1 round,
+     sequential.  The images are normalised and resized 32 -> 224 on the
+     card inside the step.
+   Each run prints a ``<run>_summary`` line: round times, host data time,
+   the JPEG decoder and its ms per image, cache bytes, peak memory, the
+   launches of each kernel.
 
 Every path zeroes the kernel launch counters just before it runs and reads
 them just after; the counts must equal what the layer structure implies.
@@ -113,9 +140,11 @@ from __future__ import annotations
 import contextlib
 import copy
 import csv
+import gc
 import json
 import math
 import os
+import pickle
 import re
 import shlex
 import shutil
@@ -157,8 +186,9 @@ RN50_OCT_SCRIPT = os.path.join(REPO, "scripts", "fairfedlora_fairfedmed_oct_rn50
 PROMPTFL_SCRIPT = os.path.join(REPO, "scripts", "fedchexmimic", "promptfl_fedchexmimic.sh")
 FEDOTP_SCRIPT = os.path.join(REPO, "scripts", "fedchexmimic", "fedotp_fedchexmimic.sh")
 LOCAL_SCRIPT = os.path.join(REPO, "scripts", "fedchexmimic", "fairfedlora_fedchexmimic_local.sh")
-# the FedChexMimic launchers run on the FairFedMed SLO fixture: their own
-# dataset is not ported (ROADMAP M14), and the fixture has no ``age``
+CHEX_SCRIPT = os.path.join(REPO, "scripts", "fedchexmimic", "fairfedlora_fedchexmimic.sh")
+# phases 7-8 run the FedChexMimic launchers on the FairFedMed SLO fixture
+# (phase 9 on their own dataset); that fixture has no ``age``
 FAIRFEDMED_FLAGS = (("--dataset-config-file", "configs/datasets/fairfedmed.yaml"),
                     ("--attributes", *ATTRIBUTES), ("--attribute_type", "race"))
 CLI_SITES, CLI_TRAIN, CLI_TEST = 3, 64, 100
@@ -166,6 +196,30 @@ CLI_SITES, CLI_TRAIN, CLI_TEST = 3, 64, 100
 # one full training batch of 32 volumes per site, 8 test volumes (the test
 # batch of 100 cycles them)
 OCT_SHAPE, OCT_TRAIN, OCT_TEST = (128, 200, 200), 32, 8
+# FairFedMed-Chest: 2 sites (CheXpert 320x320, MIMIC 336x336 grayscale
+# JPEGs, both resized to 224), copied from the committed JPEGs; attributes
+# drawn inside GROUP_TABLES["FedChexMimic"]
+JPEG_DIR = os.path.join(REPO, "tests", "data", "fedchexmimic_jpeg")
+JPEG_TOL = 1  # grey levels: two JPEG decoders' IDCTs may round a pixel apart by one
+CHEX_GROUPS = {"race": 3, "gender": 2, "age": 2}
+CHEX_TRAIN, CHEX_TEST = 64, 100
+# CIFAR at its real width (32x32x3 uint8) and a tenth of its length
+CIFAR_TRAIN, CIFAR_TEST = 5000, 1000
+CIFAR10_CLASSES = ["airplane", "automobile", "bird", "cat", "deer", "dog", "frog", "horse",
+                   "ship", "truck"]
+CIFAR100_CLASSES = [
+    "apple", "aquarium_fish", "baby", "bear", "beaver", "bed", "bee", "beetle", "bicycle",
+    "bottle", "bowl", "boy", "bridge", "bus", "butterfly", "camel", "can", "castle",
+    "caterpillar", "cattle", "chair", "chimpanzee", "clock", "cloud", "cockroach", "couch",
+    "crab", "crocodile", "cup", "dinosaur", "dolphin", "elephant", "flatfish", "forest", "fox",
+    "girl", "hamster", "house", "kangaroo", "keyboard", "lamp", "lawn_mower", "leopard", "lion",
+    "lizard", "lobster", "man", "maple_tree", "motorcycle", "mountain", "mouse", "mushroom",
+    "oak_tree", "orange", "orchid", "otter", "palm_tree", "pear", "pickup_truck", "pine_tree",
+    "plain", "plate", "poppy", "porcupine", "possum", "rabbit", "raccoon", "ray", "road",
+    "rocket", "rose", "sea", "seal", "shark", "shrew", "skunk", "skyscraper", "snail", "snake",
+    "spider", "squirrel", "streetcar", "sunflower", "sweet_pepper", "table", "tank",
+    "telephone", "television", "tiger", "tractor", "train", "trout", "tulip", "turtle",
+    "wardrobe", "whale", "willow_tree", "wolf", "woman", "worm"]
 
 
 def emit(obj):
@@ -263,12 +317,30 @@ def _bounds_ms(n, length, dh, dtype, causal):
     return out
 
 
+def text_length(classnames, n_ctx=4) -> int:
+    """The text tower's length for the prompts "X X X X <name>." of
+    ``classnames``: cut after the last EOT, rounded up to a multiple of 8
+    (models/clip_model.py:text_encode)."""
+    from fairfedmed_tpu_torch.models import tokenizer as tk
+
+    prefix = " ".join(["X"] * n_ctx)
+    eot = tk.tokenize([f"{prefix} {name.replace('_', ' ')}." for name in classnames]).argmax(-1)
+    return max(8, -(-(int(eot.max()) + 1) // 8) * 8)
+
+
+def kernel_shapes() -> dict:
+    """KERNEL_SHAPES and the widest text shape: PromptFL on CIFAR-100 (one
+    prompt bank x 100 classes x 8 heads) at its EOT-cut length."""
+    return {**KERNEL_SHAPES,
+            "text_cifar100": (len(CIFAR100_CLASSES) * 8, text_length(CIFAR100_CLASSES), 64, True)}
+
+
 def check_kernels(dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    for shape_name, (n, length, dh, causal) in KERNEL_SHAPES.items():
+    for shape_name, (n, length, dh, causal) in kernel_shapes().items():
         mask = torch.triu(torch.full((length, length), float("-inf"), device=dev), 1) \
             if causal else None
         for dtype in (torch.float32, torch.bfloat16):
@@ -865,7 +937,10 @@ def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None
     CheckedRunner.last = None
     console_path = out_dir + "_console.txt"
     saved_stdout = sys.stdout
+    gc.collect()  # free the trainers of earlier runs, so the peak is this run's own
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    start_mem = torch.cuda.memory_allocated()  # what earlier phases still hold
     A.attention_fwd.launches = 0
     A.attention_bwd.launches = 0
     t0 = time.perf_counter()
@@ -975,6 +1050,7 @@ def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None
            "epochs": epochs,
            "data_ms_per_batch_median": median(e["data_ms_per_batch"] for e in epochs),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "start_mem_gib": start_mem / 2 ** 30,
            "rounds_wall_s": cum[-1] if cum else None,
            "acc": result["acc"], "auc": result["auc"],
            "final_npz_finite": {i: len(z) > 0 and all(np.isfinite(a).all() for a in z.values())
@@ -1046,12 +1122,16 @@ SLO_ROOT = os.path.join(REPO, "build", "chip_smoke_data")
 OCT_ROOT = os.path.join(REPO, "build", "chip_smoke_data_oct")
 
 
-def _write_fixture(root, **kw):
+def _write_fixture_with(writer, root, **kw):
     shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
-    fixture = write_fairfedmed_fixture(root, **kw)
+    fixture = writer(root, **kw)
     fixture["write_s"] = time.perf_counter() - t0
     return fixture
+
+
+def _write_fixture(root, **kw):
+    return _write_fixture_with(write_fairfedmed_fixture, root, **kw)
 
 
 def cli_path(dev):
@@ -1437,7 +1517,8 @@ def parallel_branches(dev):
     total = {"attention_fwd": 0, "attention_bwd": 0}
     for phase, script, rounds, extra, with_auc in runs:
         overrides = FAIRFEDMED_FLAGS + tuple(extra)
-        res, _, finals, trainer = _parallel_run(phase, script, SLO_ROOT, rounds, dev, overrides)
+        res, runner, finals, trainer = _parallel_run(phase, script, SLO_ROOT, rounds, dev,
+                                                     overrides)
         res["changed_flags"] = [list(f) for f in overrides]
         emit(res)
         check_cli_run(res, rounds, (2,) * rounds, with_auc=with_auc)
@@ -1446,6 +1527,7 @@ def parallel_branches(dev):
         _check_ctx(finals, 1 if script == PROMPTFL_SCRIPT else 2, trainer)
         for k in total:
             total[k] += res["launches"][k]
+        del res, runner, finals, trainer  # the next run's peak memory is its own
     emit({"phase": "parallel_branches", "launches": total})
     return total
 
@@ -1490,9 +1572,256 @@ def parallel_equiv(dev):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 9: FairFedMed-Chest and CIFAR
+# --------------------------------------------------------------------------- #
+
+CHEX_ROOT = os.path.join(REPO, "build", "chip_smoke_data_chex")
+CIFAR_ROOT = os.path.join(REPO, "build", "chip_smoke_data_cifar")
+
+
+def write_chexmimic_fixture(root, n_train=CHEX_TRAIN, n_test=CHEX_TEST, seed=5):
+    """The FedChexMimic layout (data/datasets/fedchexmimic.py): CheXpert
+    (site 1) under ``root/fedchexmimic``, MIMIC (site 2) under its
+    ``files_336p``, each file a copy of a committed JPEG of the site's size
+    under its own name, and ``meta_{chexpert,mimic}_{attr}_{split}.csv`` for
+    each attribute with ``filename``, ``disease_label`` and every
+    ``{attr}_label``.  Labels and attributes are laid out so every group
+    holds both classes, then shuffled."""
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, "fedchexmimic")
+    sources = {"chexpert": sorted(f for f in os.listdir(JPEG_DIR) if f.startswith("chexpert")),
+               "mimic": sorted(f for f in os.listdir(JPEG_DIR) if f.startswith("mimic"))}
+    counter, nbytes = 0, 0
+    for site, img_dir in (("chexpert", base), ("mimic", os.path.join(base, "files_336p"))):
+        os.makedirs(img_dir, exist_ok=True)
+        for split, n in (("train", n_train), ("test", n_test)):
+            i, order = np.arange(n), rng.permutation(n)
+            cols = {"disease_label": (i % 2)[order]}
+            cols.update({f"{a}_label": ((i // 2) % g)[order] for a, g in CHEX_GROUPS.items()})
+            fnames = []
+            for j in range(n):
+                fname = f"{site}_{counter:05d}.jpg"
+                shutil.copyfile(os.path.join(JPEG_DIR, sources[site][j % len(sources[site])]),
+                                os.path.join(img_dir, fname))
+                nbytes += os.path.getsize(os.path.join(img_dir, fname))
+                fnames.append(fname)
+                counter += 1
+            for attr in CHEX_GROUPS:
+                with open(os.path.join(base, f"meta_{site}_{attr}_{split}.csv"), "w",
+                          newline="") as f:
+                    w = csv.writer(f)
+                    w.writerow(["filename", *cols])
+                    w.writerows([fn, *(int(c[j]) for c in cols.values())]
+                                for j, fn in enumerate(fnames))
+    return {"files": counter, "bytes": nbytes}
+
+
+def jpeg_check():
+    """The JPEG decoder the port picks here, held against the committed
+    pixels (``decoded.npz``, libjpeg's) within JPEG_TOL grey levels, and the
+    synchronous decode and resize to 224 of one X-ray through the dataset
+    (the path of every item the native pool has not prefetched).  Raises
+    when there is no decoder."""
+    from fairfedmed_tpu_torch import native
+    from fairfedmed_tpu_torch.data.datasets.fedchexmimic import (FedChexMimicDataset,
+                                                                 decode_gray_pil)
+
+    decoder = native.decoder("jpeg")
+    if decoder == "none":
+        raise RuntimeError("no JPEG decoder: the native JPEG build did not load "
+                           f"({native.build_log()[-400:]}) and PIL does not import")
+    want = np.load(os.path.join(JPEG_DIR, "decoded.npz"))
+    err = 0.0
+    for name in want.files:
+        path, ref = os.path.join(JPEG_DIR, name), want[name].astype(np.float32)
+        got = (native.decode_jpeg_gray(path, ref.shape[0]) if decoder == "libjpeg"
+               else decode_gray_pil(path))
+        err = max(err, float(np.abs(got - ref).max()))
+    ds = FedChexMimicDataset(os.path.join(CHEX_ROOT, "fedchexmimic"), 2, "race",
+                             list(CHEX_GROUPS), resolution=224, train=False)
+    n = 32
+    t = time.perf_counter()
+    imgs = [ds.load_item(i)[0] for i in range(n)]
+    ms = (time.perf_counter() - t) * 1e3 / n
+    res = {"phase": "jpeg_check", "decoder": decoder, "files": len(want.files),
+           "max_abs_err_grey_levels": err, "tol_grey_levels": JPEG_TOL,
+           "decode_resize_ms_per_image": ms, "source_hw": [336, 336],
+           "item_shape": list(imgs[0].shape), "build_log_tail": native.build_log()[-300:]}
+    emit(res)
+    if not err <= JPEG_TOL or imgs[0].shape != (3, 224, 224):
+        raise AssertionError(f"the JPEG decoder disagrees with decoded.npz: {res}")
+    return res
+
+
+def _summary(phase, res, jpeg=None):
+    """The numbers a run is read by, on one line."""
+    out = {"phase": f"{phase}_summary", "round_s": res["round_s"],
+           "rounds_wall_s": res["rounds_wall_s"],
+           "data_ms_per_batch_median": res["data_ms_per_batch_median"],
+           "step_ms_median": res["step_ms_median"], "peak_mem_gib": res["peak_mem_gib"],
+           "start_mem_gib": res["start_mem_gib"],
+           "launches": res["launches"], "train_batches": res["train_batches"],
+           "eval_batches": res["eval_batches"]}
+    if "rounds" in res:
+        out.update(cache_bytes=res["cache_bytes"], cache_dtypes=res["cache_dtypes"],
+                   host_data_s_per_round=[r["host_data_s"] for r in res["rounds"]],
+                   dispatch_s_per_round=[r["dispatch_s"] for r in res["rounds"]])
+    if jpeg is not None:  # parallel runs: round 0's host data time per cached X-ray
+        out.update(jpeg_decoder=jpeg["decoder"],
+                   jpeg_decode_resize_ms_per_image=jpeg["decode_resize_ms_per_image"])
+    emit(out)
+
+
+def _check_lora_groups(finals, groups):
+    """Every client's final FairLoRA singular values have one row per group."""
+    shapes = {i: z["image_encoder.transformer.resblocks.0.mlp.c_fc.lora_S.weight"].shape
+              for i, z in finals.items()}
+    if {s[0] for s in shapes.values()} != {groups}:
+        raise AssertionError(f"lora_S shapes {shapes}, expected {groups} groups")
+
+
+def chexmimic_path(dev):
+    """scripts/fedchexmimic/fairfedlora_fedchexmimic.sh without its
+    ``--parallel_clients`` (FedOTPLoRA, FairLoRA rank 12 / alpha 2, race /
+    gender / age, frac 0.8 of 2 users), ViT-B/16, 2 rounds, on 2 sites x 64
+    train / 100 test grayscale JPEGs (320x320 and 336x336, resized to 224):
+    round 0 trains both sites, round 1 the one ``np.random.choice`` draws."""
+    fixture = _write_fixture_with(write_chexmimic_fixture, CHEX_ROOT)
+    jpeg = jpeg_check()
+    res, finals, _ = run_cli(CHEX_SCRIPT, CHEX_ROOT, os.path.join(REPO, "build",
+                                                                  "chip_smoke_chexmimic"), 2, dev)
+    res = {"phase": "chexmimic_path", **res, "fixture": fixture, "jpeg_decoder": jpeg["decoder"]}
+    emit(res)
+    check_cli_run(res, 2, (2, 1))
+    _check_lora_groups(finals, CHEX_GROUPS["race"])
+    _summary("chexmimic_path", res, jpeg)
+    return res["launches"]
+
+
+def parallel_chexmimic(dev):
+    """The FedChexMimic launchers with their own ``--parallel_clients`` on
+    chexmimic_path's fixture: fairfedlora_fedchexmimic.sh 2 rounds (the
+    resized X-rays cached on the device as fp32), then
+    fairfedlora_fedchexmimic_local.sh, promptfl_fedchexmimic.sh and
+    fedotp_fedchexmimic.sh (every plan valid), 1 round each.  Launches are
+    counted per run and summed."""
+    from fairfedmed_tpu_torch import native
+
+    decoder = native.decoder("jpeg")
+    runs = (("parallel_chexmimic_fairlora", CHEX_SCRIPT, 2, (2, 1), True),
+            ("parallel_chexmimic_local", LOCAL_SCRIPT, 1, (2,), False),
+            ("parallel_chexmimic_promptfl", PROMPTFL_SCRIPT, 1, (2,), False),
+            ("parallel_chexmimic_fedotp", FEDOTP_SCRIPT, 1, (2,), True))
+    total = {"attention_fwd": 0, "attention_bwd": 0}
+    for phase, script, rounds, trained, with_auc in runs:
+        res, runner, finals, trainer = _parallel_run(phase, script, CHEX_ROOT, rounds, dev)
+        # round 0 decodes both sites' train and test X-rays into the caches
+        jpeg = {"decoder": decoder, "decode_resize_ms_per_image":
+                res["rounds"][0]["host_data_s"] * 1e3 / (2 * (CHEX_TRAIN + CHEX_TEST))}
+        res["jpeg_decoder"] = decoder
+        emit(res)
+        check_cli_run(res, rounds, trained, with_auc=with_auc)
+        if res["cache_dtypes"] != ["float32"] or res["cached_clients"]["train"] != [0, 1]:
+            raise AssertionError(f"X-ray caches: {res['cache_dtypes']} {res['cached_clients']}")
+        if script in (CHEX_SCRIPT, LOCAL_SCRIPT):
+            _check_lora_groups(finals, CHEX_GROUPS["race"])
+        else:
+            _check_ctx(finals, 1 if script == PROMPTFL_SCRIPT else 2, trainer)
+        if script == FEDOTP_SCRIPT and not all(st["valid"] == 1 for st in res["steps"]):
+            raise AssertionError(f"an invalid OT plan: {res['steps']}")
+        _summary(phase, res, jpeg)
+        for k in total:
+            total[k] += res["launches"][k]
+        del res, runner, finals, trainer  # the next run's peak memory is its own
+    emit({"phase": "parallel_chexmimic", "launches": total})
+    return total
+
+
+def write_cifar_fixture(root, which, n_train=CIFAR_TRAIN, n_test=CIFAR_TEST, seed=9):
+    """CIFAR-10 (``cifar-10/cifar-10-batches-py``: 5 data batches, the test
+    batch, ``batches.meta``) or CIFAR-100 (``cifar-100/cifar-100-python``:
+    train, test, meta) pickles as torchvision's archives hold them, written
+    with numpy: uint8 rows of 3072 (CHW) pixels, uniform labels."""
+    rng = np.random.default_rng(seed)
+    classes = CIFAR10_CLASSES if which == "cifar10" else CIFAR100_CLASSES
+
+    def batch(n, key):
+        return {"data": rng.integers(0, 256, (n, 3072), dtype=np.uint8),
+                key: rng.integers(0, len(classes), n).tolist()}
+
+    def dump(path, obj):
+        with open(path, "wb") as f:
+            pickle.dump(obj, f)
+
+    if which == "cifar10":
+        d = os.path.join(root, "cifar-10", "cifar-10-batches-py")
+        os.makedirs(d, exist_ok=True)
+        for i in range(1, 6):
+            dump(os.path.join(d, f"data_batch_{i}"), batch(n_train // 5, "labels"))
+        dump(os.path.join(d, "test_batch"), batch(n_test, "labels"))
+        dump(os.path.join(d, "batches.meta"), {"label_names": classes})
+    else:
+        d = os.path.join(root, "cifar-100", "cifar-100-python")
+        os.makedirs(d, exist_ok=True)
+        dump(os.path.join(d, "train"), batch(n_train, "fine_labels"))
+        dump(os.path.join(d, "test"), batch(n_test, "fine_labels"))
+        dump(os.path.join(d, "meta"), {"fine_label_names": classes})
+    return {"dataset": which, "train": n_train, "test": n_test, "hwc": [32, 32, 3]}
+
+
+def cifar_path(dev):
+    """CIFAR through the CLI, ViT-B/16 bf16, the CLI's default 10 users and
+    beta 0.1, configs/trainers/GLP_OT/vit_b16.yaml (the Classification
+    evaluator), on 5000 train / 1000 test 32x32x3 uint8 images resized to
+    224 on the card inside the step: the PromptFL launcher's flags
+    (fedavg, PromptFL) and the FedOTP launcher's (FedOTP, GLP_OT, 2 prompts,
+    COT; every plan valid) on CIFAR-10 under noniid-labeldir, 1 round each
+    with ``--parallel_clients`` (the uint8 images cached as they are); then
+    PromptFL on CIFAR-100 under the CLI's default noniid-labeldir100
+    (coarse -> fine Dirichlet, its per-sample loop on the host), 1 round,
+    sequential."""
+    shutil.rmtree(CIFAR_ROOT, ignore_errors=True)
+    fixtures = [write_cifar_fixture(CIFAR_ROOT, w) for w in ("cifar10", "cifar100")]
+    common = (("--num_users", "10"), ("--beta", "0.1"),
+              ("--config-file", "configs/trainers/GLP_OT/vit_b16.yaml"))
+    runs = (("cifar10_promptfl", PROMPTFL_SCRIPT, "cifar10", "noniid-labeldir", True, 1),
+            ("cifar10_fedotp", FEDOTP_SCRIPT, "cifar10", "noniid-labeldir", True, 2),
+            ("cifar100_promptfl", PROMPTFL_SCRIPT, "cifar100", "noniid-labeldir100", False, 1))
+    total = {"attention_fwd": 0, "attention_bwd": 0}
+    for phase, script, which, partition, parallel, n_prompts in runs:
+        overrides = common + (("--dataset-config-file", f"configs/datasets/{which}.yaml"),
+                              ("--partition", partition))
+        out_dir = os.path.join(REPO, "build", f"chip_smoke_{phase}")
+        t = time.perf_counter()
+        res, finals, trainer = run_cli(script, CIFAR_ROOT, out_dir, 1, dev, overrides,
+                                       parallel=parallel)
+        res = {"phase": phase, "changed_flags": [list(f) for f in overrides], **res,
+               "fixture": fixtures[0 if which == "cifar10" else 1],
+               "partition_and_rounds_s": time.perf_counter() - t}
+        res.pop("runner", None)
+        emit(res)
+        check_cli_run(res, 1, (10,), with_auc=False)
+        _check_ctx(finals, n_prompts, trainer)
+        if trainer.n_cls != (10 if which == "cifar10" else 100) or trainer._cifar is None:
+            raise AssertionError(f"{phase}: {trainer.n_cls} classes, CIFAR preprocess "
+                                 f"{trainer._cifar}")
+        if parallel and res["cache_dtypes"] != ["uint8"]:
+            raise AssertionError(f"CIFAR caches: {res['cache_dtypes']}")
+        if script == FEDOTP_SCRIPT and not all(st["valid"] == 1 for st in res["steps"]):
+            raise AssertionError(f"an invalid OT plan: {res['steps']}")
+        _summary(phase, res)
+        for k in total:
+            total[k] += res["launches"][k]
+        del res, finals, trainer  # the next run's peak memory is its own
+    emit({"phase": "cifar_path", "launches": total})
+    return total
+
+
 PATHS = ("main_path", "cli_path", "oct_path", "rn50_path", "rn50_oct_path", "ot_path",
          "promptfl_path", "fedotp_path", "clip_path", "fedprox_path", "parallel_cli_path",
-         "parallel_oct_path", "parallel_rn50_path", "parallel_branches", "parallel_equiv")
+         "parallel_oct_path", "parallel_rn50_path", "parallel_branches", "parallel_equiv",
+         "chexmimic_path", "parallel_chexmimic", "cifar_path")
 
 
 def kernels_line(rows, launches):

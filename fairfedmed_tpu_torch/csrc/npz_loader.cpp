@@ -1,11 +1,12 @@
-// Native NPZ reader + threaded prefetch pool for the data pipeline.
+// Native NPZ reader, JPEG decoder and threaded prefetch pool for the data
+// pipeline.
 //
-// The port's own copy of the JAX package's native/npz_loader.cpp, NPZ only
-// (the JPEG decoder there serves FedChexMimic, which is not ported yet).  The
+// The port's own copy of the JAX package's native/npz_loader.cpp.  The
 // reference's data layer leans on torch DataLoader worker *processes* to hide
-// NPZ decode latency (Dassl/dassl/data/data_manager.py:49-56).  This is a
-// small C++ runtime instead: a zip/NPY parser with zlib inflate plus a
-// producer-consumer thread pool that decodes ahead of the training step,
+// NPZ and JPEG decode latency (Dassl/dassl/data/data_manager.py:49-56).  This
+// is a small C++ runtime instead: a zip/NPY parser with zlib inflate, a
+// grayscale JPEG decoder over libjpeg (compiled only with FFM_WITH_JPEG), and
+// a producer-consumer thread pool that decodes ahead of the training step,
 // exposed to Python over a C ABI (ctypes).  Python's zipfile+np.load pays
 // interpreter overhead per member and holds the GIL; this path decodes
 // entirely outside the GIL.
@@ -16,6 +17,15 @@
 
 #include <zlib.h>
 
+#ifdef FFM_WITH_JPEG
+#include <cstdio>  // jpeglib.h needs FILE declared first
+
+#include <jpeglib.h>
+
+#include <csetjmp>
+#endif
+
+#include <cmath>
 #include <condition_variable>
 #include <cstdint>
 #include <functional>
@@ -264,6 +274,98 @@ bool fetch(NpzFile* f, const std::string& member, Ticket* t) {
   return true;
 }
 
+// ---------------------------------------------------------------------------
+// JPEG decode (FedChexMimic X-rays): grayscale + bilinear resize, the
+// worker-side equivalent of the PIL convert("L") + bilinear path in
+// data/datasets/fedchexmimic.py (cv2.INTER_LINEAR's convention).  Compiled
+// only when libjpeg is present (FFM_WITH_JPEG); the Python layer probes the
+// symbol and decodes with PIL otherwise.
+// ---------------------------------------------------------------------------
+
+#ifdef FFM_WITH_JPEG
+struct JpegErr {
+  jpeg_error_mgr mgr;
+  jmp_buf jb;
+};
+
+void jpeg_err_exit(j_common_ptr cinfo) {
+  longjmp(reinterpret_cast<JpegErr*>(cinfo->err)->jb, 1);
+}
+
+bool decode_jpeg_gray(const std::string& path, std::vector<float>* out,
+                      int* h, int* w) {
+  FILE* fp = fopen(path.c_str(), "rb");
+  if (!fp) return false;
+  jpeg_decompress_struct cinfo;
+  JpegErr jerr;
+  cinfo.err = jpeg_std_error(&jerr.mgr);
+  jerr.mgr.error_exit = jpeg_err_exit;
+  if (setjmp(jerr.jb)) {
+    jpeg_destroy_decompress(&cinfo);
+    fclose(fp);
+    return false;
+  }
+  jpeg_create_decompress(&cinfo);
+  jpeg_stdio_src(&cinfo, fp);
+  jpeg_read_header(&cinfo, TRUE);
+  cinfo.out_color_space = JCS_GRAYSCALE;
+  jpeg_start_decompress(&cinfo);
+  *w = static_cast<int>(cinfo.output_width);
+  *h = static_cast<int>(cinfo.output_height);
+  out->resize(static_cast<size_t>(*w) * *h);
+  std::vector<uint8_t> row(*w);
+  JSAMPROW rp = row.data();
+  while (cinfo.output_scanline < cinfo.output_height) {
+    int y = static_cast<int>(cinfo.output_scanline);
+    jpeg_read_scanlines(&cinfo, &rp, 1);
+    for (int x = 0; x < *w; ++x)
+      (*out)[static_cast<size_t>(y) * *w + x] = static_cast<float>(row[x]);
+  }
+  jpeg_finish_decompress(&cinfo);
+  jpeg_destroy_decompress(&cinfo);
+  fclose(fp);
+  return true;
+}
+
+// cv2.INTER_LINEAR convention: half-pixel centers, edge clamp
+void resize_bilinear(const float* src, int sh, int sw, float* dst, int dh,
+                     int dw) {
+  const float ry = static_cast<float>(sh) / dh;
+  const float rx = static_cast<float>(sw) / dw;
+  auto clampi = [](int v, int hi) { return v < 0 ? 0 : (v > hi ? hi : v); };
+  for (int y = 0; y < dh; ++y) {
+    float fy = (y + 0.5f) * ry - 0.5f;
+    int y0 = static_cast<int>(std::floor(fy));
+    float wy = fy - y0;
+    int y0c = clampi(y0, sh - 1), y1c = clampi(y0 + 1, sh - 1);
+    for (int x = 0; x < dw; ++x) {
+      float fx = (x + 0.5f) * rx - 0.5f;
+      int x0 = static_cast<int>(std::floor(fx));
+      float wx = fx - x0;
+      int x0c = clampi(x0, sw - 1), x1c = clampi(x0 + 1, sw - 1);
+      const float* r0 = src + static_cast<size_t>(y0c) * sw;
+      const float* r1 = src + static_cast<size_t>(y1c) * sw;
+      dst[static_cast<size_t>(y) * dw + x] =
+          (1 - wy) * ((1 - wx) * r0[x0c] + wx * r0[x1c]) +
+          wy * ((1 - wx) * r1[x0c] + wx * r1[x1c]);
+    }
+  }
+}
+
+bool jpeg_gray_resized(const std::string& path, int out_res,
+                       std::vector<float>* dst) {
+  std::vector<float> raw;
+  int h = 0, w = 0;
+  if (!decode_jpeg_gray(path, &raw, &h, &w)) return false;
+  dst->resize(static_cast<size_t>(out_res) * out_res);
+  if (h == out_res && w == out_res) {
+    *dst = std::move(raw);
+  } else {
+    resize_bilinear(raw.data(), h, w, dst->data(), out_res, out_res);
+  }
+  return true;
+}
+#endif  // FFM_WITH_JPEG
 
 void worker_loop(Pool* pool) {
   for (;;) {
@@ -403,6 +505,40 @@ long nlp_submit(void* p, const char* path, const char* member) {
   return id;
 }
 
+#ifdef FFM_WITH_JPEG
+// Synchronous JPEG decode: grayscale + bilinear resize into dst[res*res] fp32.
+int njd_decode_gray(const char* path, int out_res, float* dst) {
+  std::vector<float> buf;
+  if (!jpeg_gray_resized(path, out_res, &buf)) return -1;
+  memcpy(dst, buf.data(), buf.size() * sizeof(float));
+  return 0;
+}
+
+// Queue a JPEG decode job on the prefetch pool; ticket resolves to an
+// <f4 [res, res] array through the same wait/collect machinery as NPZ jobs.
+long nlp_submit_jpeg(void* p, const char* path, int out_res) {
+  auto* pool = static_cast<Pool*>(p);
+  std::string spath(path);
+  long id;
+  {
+    std::lock_guard<std::mutex> lk(pool->mu);
+    id = pool->next_id++;
+    pool->tickets[id] = std::make_unique<Ticket>();
+    pool->queue.emplace_back(id, [spath, out_res](Ticket* t) {
+      std::vector<float> buf;
+      t->ok = jpeg_gray_resized(spath, out_res, &buf);
+      if (t->ok) {
+        t->dtype = "<f4";
+        t->shape = {out_res, out_res};
+        t->payload.resize(buf.size() * sizeof(float));
+        memcpy(t->payload.data(), buf.data(), t->payload.size());
+      }
+    });
+  }
+  pool->cv_work.notify_one();
+  return id;
+}
+#endif  // FFM_WITH_JPEG
 
 // Blocks until the ticket is decoded; fills metadata.  Second call with a
 // buffer copies payload and retires the ticket.

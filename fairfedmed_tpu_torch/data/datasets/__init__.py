@@ -1,4 +1,7 @@
-"""Datasets of the port, registered by name in ``DATASET_REGISTRY``.  Only
-FairFedMed is ported; ``data.manager.build_dataset`` refuses the others."""
+"""Datasets of the port, registered by name in ``DATASET_REGISTRY``:
+FairFedMed, FedChexMimic, Cifar10 and Cifar100.  ``data.manager.build_dataset``
+refuses the others (ROADMAP M14b)."""
 
-from .fairfedmed import FairFedMed, FairFedMedDataset  # noqa: F401  (registers FairFedMed)
+from .cifar import Cifar10, Cifar100  # noqa: F401  (register)
+from .fairfedmed import FairFedMed, FairFedMedDataset  # noqa: F401
+from .fedchexmimic import FedChexMimic, FedChexMimicDataset  # noqa: F401

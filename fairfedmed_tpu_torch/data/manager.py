@@ -16,7 +16,9 @@ numpy batching:
 * a structured ``DATALOADER.TRAIN_X.SAMPLER`` needs a dataset with a Datum
   list (``.items``); a client dataset without one (FairFedMed) shuffles at
   random after one warning, as in the JAX package.  The samplers themselves
-  are not ported yet (ROADMAP M14b).
+  are not ported yet (ROADMAP M14b);
+* a dataset's items may carry no attributes (CIFAR): its batches then hold
+  no ``attrs``.
 
 ``prefetch_to_device`` keeps the next batches on the device while the host
 decodes, with pinned host memory and non-blocking copies on CUDA.
@@ -39,7 +41,7 @@ def build_dataset(cfg):
 
     name = cfg.DATASET.NAME
     if name not in DATASET_REGISTRY.registered_names():
-        raise NotImplementedError(f"dataset {name!r} is not ported yet (ROADMAP M14); "
+        raise NotImplementedError(f"dataset {name!r} is not ported yet (ROADMAP M14b); "
                                   f"ported: {DATASET_REGISTRY.registered_names()}")
     return DATASET_REGISTRY.get(name)(cfg)
 

@@ -11,7 +11,9 @@ loop's state_dict harvest, deep copies and host aggregation per client:
   the selected clients' rows, trains them and scatters them back, with no
   host copy of a weight or an optimizer state inside the round;
 * each client's train and test sets are decoded once into device caches
-  (uint8 where the pixels are integral) under one budget for the whole
+  (uint8 where the pixels are integral: SLO NPZs, CIFAR's NHWC arrays as
+  loaded, X-rays already at the target size; fp32 where a resize made them
+  fractional, as FedChexMimic's 320/336 -> 224) under one budget for the whole
   fleet, ``FAIRFEDMED_DEVICE_CACHE_BYTES`` (4 GiB by default); a round draws
   the sequential loader's ``np.random.permutation`` per client and gathers
   its batches on the device;

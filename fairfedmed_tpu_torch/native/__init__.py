@@ -1,24 +1,34 @@
-"""Native (C++) host data runtime: NPZ reader + threaded prefetch pool.
+"""Native (C++) host data runtime: NPZ reader, grayscale JPEG decoder and a
+threaded prefetch pool.
 
-The port's own copy of the JAX package's ``native`` module, NPZ only.
-``csrc/npz_loader.cpp`` is a zip/NPY parser with zlib inflate and a GIL-free
+The port's own copy of the JAX package's ``native`` module.
+``csrc/npz_loader.cpp`` is a zip/NPY parser with zlib inflate, a libjpeg
+decoder with a bilinear resize (FedChexMimic's X-rays), and a GIL-free
 producer-consumer thread pool, bound over a C ABI with ctypes.  It is
 compiled with ``g++`` at first use into ``build/native/`` at the repository
 root, under a name that carries a digest of the source and flags, written to
 a temporary name and renamed into place (several processes may build at
-once).
+once).  Two builds are tried in order, as in the JAX package: with the JPEG
+decoder (``-DFFM_WITH_JPEG -ljpeg``), then without it.  A build that fails
+leaves a stamp with the compiler's output, so later processes do not retry
+it (a host without libjpeg's headers pays one failed ``g++`` run, once).
 
-When the build fails (no compiler, no zlib headers), every entry point falls
-back to numpy's ``np.load``, as the JAX package's does: this is a host
-decoder, not a device kernel.  The fallback is visible: :func:`decoder` says
-which decoder runs and :func:`build_log` holds the compiler's output.
+When no build succeeds (no compiler, no zlib headers), every NPZ entry point
+falls back to numpy's ``np.load``, as the JAX package's does: this is a host
+decoder, not a device kernel.  Without the JPEG build, FedChexMimic decodes
+with PIL.  The fallbacks are visible: :func:`decoder` says which decoder
+runs and :func:`build_log` holds the compiler's output.
 
 Public surface:
 
 * ``NpzReader(path)``         -- dict-like ``.keys()`` / ``.get(name)`` -> np.ndarray
-* ``PrefetchPool(n_threads)`` -- ``submit(path, member)`` -> ticket; ``collect(ticket)``
-* ``native_available()``      -- True when the compiled library loaded
-* ``decoder()``               -- ``"native"`` or ``"numpy"``
+* ``PrefetchPool(n_threads)`` -- ``submit(path, member)`` / ``submit_jpeg(path, res)``
+  -> ticket; ``collect(ticket)``
+* ``native_available()``      -- True when a compiled library loaded
+* ``jpeg_available()``        -- True when it holds the JPEG decoder
+* ``decode_jpeg_gray(path, res)`` -- fp32 [res, res] on the 0-255 scale
+* ``decoder()``               -- ``"native"`` or ``"numpy"`` (NPZ);
+  ``decoder("jpeg")``: ``"libjpeg"``, ``"PIL"`` or ``"none"``
 """
 
 from __future__ import annotations
@@ -37,6 +47,8 @@ _SRC = Path(__file__).resolve().parent.parent / "csrc" / "npz_loader.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 LINK_FLAGS = ("-lz", "-lpthread")
+# (name, extra compile flags, extra link flags), in the order they are tried
+BUILDS = (("jpeg", ("-DFFM_WITH_JPEG",), ("-ljpeg",)), ("plain", (), ()))
 
 _lib = None  # None: not tried yet; False: the build or load failed
 _log = ""
@@ -48,36 +60,41 @@ _DTYPES = {
 }
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(GXX_FLAGS + LINK_FLAGS).encode())
+def library_path(build: str = "plain") -> Path:
+    _, cflags, libs = next(b for b in BUILDS if b[0] == build)
+    h = hashlib.sha256(" ".join(GXX_FLAGS + cflags + LINK_FLAGS + libs).encode())
     h.update(_SRC.read_bytes())
-    return BUILD_DIR / f"libnpz_loader-{h.hexdigest()[:16]}.so"
+    suffix = "" if build == "plain" else f"{build}-"
+    return BUILD_DIR / f"libnpz_loader-{suffix}{h.hexdigest()[:16]}.so"
 
 
-def _build() -> Path | None:
-    """The library, compiled if missing; None (and the reason in ``_log``)
-    when it cannot be built.  A failed build leaves ``<name>.failed`` with the
-    compiler's output, so later processes do not retry it."""
+def _build(build: str) -> Path | None:
+    """The library of ``build`` (one of ``BUILDS``), compiled if missing;
+    None (and the reason in ``_log``) when it cannot be built.  A failed
+    build leaves ``<name>.failed`` with the compiler's output, so later
+    processes do not retry it."""
     global _log
-    target = library_path()
+    _, cflags, libs = next(b for b in BUILDS if b[0] == build)
+    target = library_path(build)
     failed = target.with_name(target.name + ".failed")
     if target.exists():
         return target
     if failed.exists():
-        _log = failed.read_text()
+        _log += failed.read_text()
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = ["g++", *GXX_FLAGS, str(_SRC), "-o", str(tmp), *LINK_FLAGS]
+    cmd = ["g++", *GXX_FLAGS, *cflags, str(_SRC), "-o", str(tmp), *LINK_FLAGS, *libs]
     try:
         out = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     except (FileNotFoundError, subprocess.TimeoutExpired) as e:
-        _log = f"{' '.join(cmd)}: {e}"
+        _log += f"{' '.join(cmd)}: {e}\n"
         return None
     if out.returncode != 0:
-        _log = f"{' '.join(cmd)} (exit {out.returncode}):\n{out.stdout}{out.stderr}"
+        msg = f"{' '.join(cmd)} (exit {out.returncode}):\n{out.stdout}{out.stderr}"
+        _log += msg
         tmp_failed = failed.with_name(f"{failed.name}.{os.getpid()}.tmp")
-        tmp_failed.write_text(_log)
+        tmp_failed.write_text(msg)
         os.replace(tmp_failed, failed)
         tmp.unlink(missing_ok=True)
         return None
@@ -90,16 +107,18 @@ def _load():
     with _lib_lock:
         if _lib is not None:
             return _lib or None
-        so = _build()
-        if so is None:
+        lib = None
+        for build, _, _ in BUILDS:  # the JPEG build first
+            so = _build(build)
+            if so is None:
+                continue
+            try:
+                lib = ctypes.CDLL(str(so))
+                break
+            except OSError as e:  # e.g. libjpeg removed after the build
+                _log += f"cannot load {so}: {e}\n"
+        if lib is None:
             print(f"[native] NPZ reader not built, using numpy's np.load: {_log[-400:]}")
-            _lib = False
-            return None
-        try:
-            lib = ctypes.CDLL(str(so))
-        except OSError as e:
-            _log = f"cannot load {so}: {e}"
-            print(f"[native] {_log}; using numpy's np.load")
             _lib = False
             return None
         lib.nlz_open.restype = ctypes.c_void_p
@@ -134,6 +153,12 @@ def _load():
                                     ctypes.c_void_p, ctypes.c_int64]
         lib.nlp_discard.restype = ctypes.c_int
         lib.nlp_discard.argtypes = [ctypes.c_void_p, ctypes.c_long]
+        if hasattr(lib, "njd_decode_gray"):  # the FFM_WITH_JPEG build
+            lib.njd_decode_gray.restype = ctypes.c_int
+            lib.njd_decode_gray.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                                            ctypes.POINTER(ctypes.c_float)]
+            lib.nlp_submit_jpeg.restype = ctypes.c_long
+            lib.nlp_submit_jpeg.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
         _lib = lib
         return lib
 
@@ -142,13 +167,47 @@ def native_available() -> bool:
     return _load() is not None
 
 
-def decoder() -> str:
-    """``"native"`` when the C++ reader serves the NPZs, else ``"numpy"``."""
-    return "native" if native_available() else "numpy"
+def jpeg_available() -> bool:
+    lib = _load()
+    return lib is not None and hasattr(lib, "njd_decode_gray")
+
+
+def _pil_available() -> bool:
+    try:
+        import PIL.Image  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def decoder(kind: str = "npz") -> str:
+    """The decoder in use.  ``"npz"``: ``"native"`` when the C++ reader
+    serves the NPZs, else ``"numpy"``.  ``"jpeg"`` (FedChexMimic's X-rays):
+    ``"libjpeg"`` when the native JPEG build loaded (the prefetch pool then
+    decodes on its threads), else ``"PIL"`` when PIL imports, else
+    ``"none"`` (decoding a JPEG then raises)."""
+    if kind == "npz":
+        return "native" if native_available() else "numpy"
+    if kind == "jpeg":
+        return "libjpeg" if jpeg_available() else "PIL" if _pil_available() else "none"
+    raise ValueError(f"kind must be 'npz' or 'jpeg', got {kind!r}")
+
+
+def decode_jpeg_gray(path: str, resolution: int) -> np.ndarray | None:
+    """Native grayscale JPEG decode and bilinear resize to ``(resolution,
+    resolution)``, fp32 on the 0-255 scale; None when the JPEG build is not
+    loaded or libjpeg rejects the file."""
+    if not jpeg_available():
+        return None
+    out = np.empty((resolution, resolution), np.float32)
+    rc = _lib.njd_decode_gray(path.encode(), resolution,
+                              out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    return out if rc == 0 else None
 
 
 def build_log() -> str:
-    """Why the native build or load failed ("" when it did not)."""
+    """What failed of the native builds and loads ("" when nothing did):
+    on a host without libjpeg's headers, the JPEG build's compiler output."""
     _load()
     return _log
 
@@ -248,6 +307,20 @@ class PrefetchPool:
         if t < 0:
             raise IOError(f"cannot open {path}")
         return t
+
+    @property
+    def supports_jpeg(self) -> bool:
+        return self._p is not None and hasattr(self._lib, "njd_decode_gray")
+
+    def submit_jpeg(self, path: str, resolution: int):
+        """Queue a grayscale JPEG decode and resize to ``(resolution,
+        resolution)`` fp32; the ticket resolves through ``collect`` /
+        ``discard`` as an NPZ ticket does.  Check :attr:`supports_jpeg`
+        first: without the JPEG build there is nothing to overlap."""
+        if not self.supports_jpeg:
+            raise RuntimeError("the native JPEG build is not loaded "
+                               "(check PrefetchPool.supports_jpeg)")
+        return self._lib.nlp_submit_jpeg(self._p, path.encode(), resolution)
 
     def collect(self, ticket) -> np.ndarray:
         if isinstance(ticket, tuple) and ticket[0] == "_sync":

@@ -8,7 +8,9 @@ SVLoRA / FairLoRA adapters on the image tower whose singular values blend by
 the sample's demographic group.  Both backbones (ViT, ModifiedResNet) and
 both input kinds (2D images; 3D OCT volumes, cut into slices of
 ``DIM_PER_3D_SLICE`` B-scans that a trainable 5x5 conv projects to 3
-channels) run on medical datasets.
+channels) run on the medical datasets (FairFedMed, FedChexMimic), and 2D on
+CIFAR-10/100, whose uint8 NHWC batches are normalised and resized on the
+device inside the step (``data/transforms.py:CifarPreprocess``).
 
 Each batch runs one forward and backward and then steps the optimizer
 TWICE on the same gradients when the image encoder is unfrozen: the
@@ -34,6 +36,7 @@ import torch.nn.functional as F
 
 from ...adapters.lora import group_mix, init_lora
 from ...core.pytree import flatten_paths, unflatten_like
+from ...data.transforms import device_preprocess
 from ...evaluation import metrics as eval_metrics
 from ...models.clip_model import l2_normalize, pool_index, text_encode, vit_encode
 from ...models.prompt_learner import assemble_prompts, init_prompt_learner
@@ -46,6 +49,8 @@ from ..engine import TrainerX
 from ..optim import FunctionalOptimizer, build_lr_scheduler, build_optimizer, set_learning_rate
 
 MEDICAL_DATASETS = ("FairFedMed", "FedChexMimic", "WangGrant")
+# the datasets the port has, on which the JAX trainers run these branches
+PORTED_DATASETS = ("FairFedMed", "FedChexMimic", "Cifar10", "Cifar100")
 MODALITY_3D = ("oct_bscans", "oct_bscans_3d", "mac_onh", "onh_mac")
 OT_METHODS = ("None", "Sinkhorn", "COT")
 
@@ -95,6 +100,13 @@ def _stat_key(path: str) -> str:
     return f"image_encoder.{node}.running_{leaf}"
 
 
+def check_dataset(cfg):
+    """Raise for a dataset the port has not got (ROADMAP M14b)."""
+    if cfg.DATASET.NAME not in PORTED_DATASETS:
+        raise NotImplementedError(f"dataset {cfg.DATASET.NAME} is not ported yet "
+                                  f"(ROADMAP M14b); ported: {list(PORTED_DATASETS)}")
+
+
 class GLPOTBase(TrainerX):
     """Shared machinery; GLP_OT sets ``use_lora = False``, GLP_OT_SVLoRA
     ``True``."""
@@ -107,9 +119,7 @@ class GLPOTBase(TrainerX):
             raise ValueError(f"PREC must be fp16/fp32/amp, got {t.PREC}")
         if t.OT not in OT_METHODS:
             raise NotImplementedError(f"OT={t.OT} (one of {OT_METHODS})")
-        if cfg.DATASET.NAME not in MEDICAL_DATASETS:
-            raise NotImplementedError(f"dataset {cfg.DATASET.NAME} is not ported yet "
-                                      "(ROADMAP M14)")
+        check_dataset(cfg)
 
     # ------------------------------------------------------------- build
     def build_model(self):
@@ -223,6 +233,7 @@ class GLPOTBase(TrainerX):
         # would synchronise with the device
         self._pixel_mean = torch.tensor(cfg.INPUT.PIXEL_MEAN).reshape(1, -1, 1, 1).to(self.device)
         self._pixel_std = torch.tensor(cfg.INPUT.PIXEL_STD).reshape(1, -1, 1, 1).to(self.device)
+        self._cifar = device_preprocess(cfg, self.device)
         self._eot_pool = pool_index(self.prompt_state.eot_indices, self.device)
 
         self.lr_sched = build_lr_scheduler(cfg.OPTIM)
@@ -238,7 +249,10 @@ class GLPOTBase(TrainerX):
         """CustomCLIP.forward's head (GLP_OT_SVLoRA.py:677-693): /255, for 3D
         volumes the slice projector and a per-slice min-max, then the CLIP
         mean/std.  The projector's /255 is folded into its (tiny) weight; the
-        conv runs in the compute type, the bias and min-max in fp32."""
+        conv runs in the compute type, the bias and min-max in fp32.  CIFAR
+        batches take ``CifarPreprocess`` instead (JAX glp_ot.py:295-303)."""
+        if self._cifar is not None:
+            return self._cifar(image)
         x = image.float()
         if self.is_3d_input:
             _, _, h, w = x.shape
@@ -347,12 +361,15 @@ class GLPOTBase(TrainerX):
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
 
-        with torch.no_grad():  # one host fetch: [loss, valid, acc, probs, labels]
+        # the training AUC is the medical datasets' only (JAX glp_ot.py:649)
+        with_auc = self.cfg.DATASET.NAME in MEDICAL_DATASETS
+        with torch.no_grad():  # one host fetch: [loss, valid, acc(, probs, labels)]
             ok = torch.ones((), device=self.device) if valid is None else valid.float()
-            probs = torch.softmax(logits.detach().float(), -1)
-            m = torch.cat([loss.detach().float()[None], ok[None],
-                           accuracy_from_logits(logits.detach(), label)[None],
-                           probs.ravel(), label.float()]).cpu().numpy()
+            parts = [loss.detach().float()[None], ok[None],
+                     accuracy_from_logits(logits.detach(), label)[None]]
+            if with_auc:
+                parts += [torch.softmax(logits.detach().float(), -1).ravel(), label.float()]
+            m = torch.cat(parts).cpu().numpy()
         valid_h = bool(m[1])
         if valid_h:  # an invalid plan skips the whole optimizer step
             for _ in range(self.opt_steps_per_batch):
@@ -363,6 +380,7 @@ class GLPOTBase(TrainerX):
             # a genuine NaN/Inf raises like the reference's detect_anomaly;
             # an invalid plan is the only sanctioned NaN
             self.detect_anomaly(loss_v)
+        if valid_h and with_auc:
             n = label.shape[0]
             label_h = m[3 + n * self.n_cls:].astype(np.int64)
             if len(set(label_h.tolist())) == 1:
@@ -384,13 +402,18 @@ class GLPOTBase(TrainerX):
         return self._to_device(attrs[:, idx])
 
     def parse_batch_train(self, batch):
+        image, label = self._to_device(batch["img"]), self._to_device(batch["label"])
+        if self.cfg.DATASET.NAME not in MEDICAL_DATASETS:  # no attributes (CIFAR)
+            return image, label, None, None
         attrs = batch["attrs"]
-        return (self._to_device(batch["img"]), self._to_device(batch["label"]), attrs,
-                self._target_attr(attrs))
+        return image, label, attrs, self._target_attr(attrs)
 
     def parse_batch_test(self, batch):
+        image = self._to_device(batch["img"])
+        if self.cfg.DATASET.NAME not in MEDICAL_DATASETS:
+            return image, batch["label"], None, None
         attrs = batch["attrs"]
-        return self._to_device(batch["img"]), batch["label"], attrs, self._target_attr(attrs)
+        return image, batch["label"], attrs, self._target_attr(attrs)
 
     @torch.no_grad()
     def model_inference(self, inp, attr=None):

@@ -17,7 +17,9 @@ tower builds no autograd graph; the gradient reaches the context through
 the text tower only.  On the medical datasets the image tower takes the
 loader's raw 0-255 pixels, as the reference forward does;
 ``TRAINER.PROMPTFL.NORMALIZE_MEDICAL_INPUT`` opts into CLIP's /255 and
-mean/std.  The logits are ``exp(logit_scale) * (im @ txt^T)`` over the
+mean/std.  CIFAR-10/100 batches (uint8 NHWC) are normalised and resized on
+the device inside the step (``data/transforms.py:CifarPreprocess``, JAX
+promptfl.py:87-94).  The logits are ``exp(logit_scale) * (im @ txt^T)`` over the
 l2-normalised features, the product in the compute type and then cast to
 fp32, as the JAX package computes it.
 """
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from ...core.pytree import flatten_paths
+from ...data.transforms import device_preprocess
 from ...models.clip_model import l2_normalize, pool_index, text_encode, vit_encode
 from ...models.prompt_learner import assemble_prompts, init_prompt_learner
 from ...models.resnet_clip import resnet_encode
@@ -35,7 +38,7 @@ from ...utils.registry import TRAINER_REGISTRY
 from ..clip_common import accuracy_from_logits, cross_entropy, fedprox_term, load_clip_bundle
 from ..engine import TrainerX
 from ..optim import FunctionalOptimizer, build_lr_scheduler, build_optimizer, set_learning_rate
-from .glp_ot import MEDICAL_DATASETS
+from .glp_ot import check_dataset
 
 
 class _CosineCLIPTrainer(TrainerX):
@@ -47,9 +50,7 @@ class _CosineCLIPTrainer(TrainerX):
     def check_cfg(self, cfg):
         if cfg.TRAINER[self.prec_node].PREC not in ("fp16", "fp32", "amp"):
             raise ValueError(f"PREC must be fp16/fp32/amp, got {cfg.TRAINER[self.prec_node].PREC}")
-        if cfg.DATASET.NAME not in MEDICAL_DATASETS:
-            raise NotImplementedError(f"dataset {cfg.DATASET.NAME} is not ported yet "
-                                      "(ROADMAP M14)")
+        check_dataset(cfg)
 
     def build_model(self):
         cfg = self.cfg
@@ -82,6 +83,7 @@ class _CosineCLIPTrainer(TrainerX):
         # would synchronise with the device
         self._pixel_mean = torch.tensor(cfg.INPUT.PIXEL_MEAN).reshape(1, -1, 1, 1).to(self.device)
         self._pixel_std = torch.tensor(cfg.INPUT.PIXEL_STD).reshape(1, -1, 1, 1).to(self.device)
+        self._cifar = device_preprocess(cfg, self.device)
         self._eot_pool = pool_index(self.prompt_state.eot_indices, self.device)
 
         self.lr_sched = build_lr_scheduler(cfg.OPTIM)
@@ -91,6 +93,8 @@ class _CosineCLIPTrainer(TrainerX):
 
     # ------------------------------------------------------------- forward
     def _preprocess(self, image):
+        if self._cifar is not None:
+            return self._cifar(image)
         x = image.float()
         if getattr(self.cfg.TRAINER[self.prec_node], "NORMALIZE_MEDICAL_INPUT", False):
             x = (x / 255.0 - self._pixel_mean) / self._pixel_std
