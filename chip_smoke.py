@@ -124,11 +124,34 @@ Phases, each printing one JSON line:
    Each run prints a ``<run>_summary`` line: round times, host data time,
    the JPEG decoder and its ms per image, cache bytes, peak memory, the
    launches of each kernel.
+10. The image-folder datasets, on trees written here with PIL from a seed:
+   - ``caltech_path``: the JAX CLI's own default run, ``--root``,
+     ``--output-dir`` and ``--round 2`` and no other flag: FedOTP over
+     GLP_OT, RN50 from configs/trainers/GLP_OT/rn50.yaml (5 local epochs,
+     host transforms: bicubic random resized crop, flip, normalize), bf16,
+     COT, 16 context tokens, 2 prompts, 10 users of 2 shots, on a
+     Caltech-101 tree of 102 folders (100 classes once BACKGROUND_Google
+     and Faces_easy are ignored) x 8 JPEGs of about 300x230, one in ten
+     grayscale; the text tower runs 100 classes x 2 prompts x 8 heads at
+     its EOT-cut length (``text_caltech``);
+   - ``caltech_vit_parallel``: the same with ``--config-file
+     configs/trainers/GLP_OT/vit_b16.yaml --parallel_clients``, 2 rounds:
+     the host transforms refuse every device cache, so each round
+     assembles its batches on the host and evaluates on the sequential
+     path, with no device wait in its dispatch half;
+   - ``office_path``: ``--model fedavg --trainer PromptFL --config-file
+     configs/trainers/PromptFL/vit_b16.yaml --dataset-config-file
+     configs/datasets/office.yaml --num_users 4 --round 1`` on an
+     Office-Caltech-10 tree (4 sites x 40 train / 20 test JPEGs of
+     300x300), sequential.
+   Each checks the classes, a valid OT plan on every step, every client
+   evaluated, and prints a summary line with the host data time per batch.
 
 Every path zeroes the kernel launch counters just before it runs and reads
 them just after; the counts must equal what the layer structure implies.
-Then the ``kernels`` line (``launches`` from main_path, ``launches_<path>``
-from each other path; with each tensor-core kernel's registers and spills
+Then the ``kernels`` line (both kernels at the vision training shape and at
+``text_caltech``; ``launches`` from main_path, ``launches_<path>`` from each
+other path; with each tensor-core kernel's registers and spills
 from ptxas, its shared memory and waves from the CUDA runtime, and its bound
 share from the cold time), the total time, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``.  Any failure raises: the
@@ -203,6 +226,38 @@ JPEG_DIR = os.path.join(REPO, "tests", "data", "fedchexmimic_jpeg")
 JPEG_TOL = 1  # grey levels: two JPEG decoders' IDCTs may round a pixel apart by one
 CHEX_GROUPS = {"race": 3, "gender": 2, "age": 2}
 CHEX_TRAIN, CHEX_TEST = 64, 100
+# Caltech-101's 102 folders (101 categories and BACKGROUND_Google); the
+# dataset ignores BACKGROUND_Google and Faces_easy and renames airplanes,
+# Faces, Leopards and Motorbikes, leaving 100 classes.  Each folder holds
+# CALTECH_PER_CLASS JPEGs of about Caltech-101's size (short edge 200-300,
+# long edge 250-400), one in ten grayscale
+CALTECH_FOLDERS = [
+    "BACKGROUND_Google", "Faces", "Faces_easy", "Leopards", "Motorbikes", "accordion",
+    "airplanes", "anchor", "ant", "barrel", "bass", "beaver", "binocular", "bonsai", "brain",
+    "brontosaurus", "buddha", "butterfly", "camera", "cannon", "car_side", "ceiling_fan",
+    "cellphone", "chair", "chandelier", "cougar_body", "cougar_face", "crab", "crayfish",
+    "crocodile", "crocodile_head", "cup", "dalmatian", "dollar_bill", "dolphin", "dragonfly",
+    "electric_guitar", "elephant", "emu", "euphonium", "ewer", "ferry", "flamingo",
+    "flamingo_head", "garfield", "gerenuk", "gramophone", "grand_piano", "hawksbill",
+    "headphone", "hedgehog", "helicopter", "ibis", "inline_skate", "joshua_tree", "kangaroo",
+    "ketch", "lamp", "laptop", "llama", "lobster", "lotus", "mandolin", "mayfly", "menorah",
+    "metronome", "minaret", "nautilus", "octopus", "okapi", "pagoda", "panda", "pigeon", "pizza",
+    "platypus", "pyramid", "revolver", "rhino", "rooster", "saxophone", "schooner", "scissors",
+    "scorpion", "sea_horse", "snoopy", "soccer_ball", "stapler", "starfish", "stegosaurus",
+    "stop_sign", "strawberry", "sunflower", "tick", "trilobite", "umbrella", "watch",
+    "water_lilly", "wheelchair", "wild_cat", "windsor_chair", "wrench", "yin_yang"]
+CALTECH_IGNORED = ("BACKGROUND_Google", "Faces_easy")
+CALTECH_RENAMED = {"airplanes": "airplane", "Faces": "face", "Leopards": "leopard",
+                   "Motorbikes": "motorbike"}
+CALTECH_CLASSES = sorted(CALTECH_RENAMED.get(f, f) for f in CALTECH_FOLDERS
+                         if f not in CALTECH_IGNORED)
+CALTECH_PER_CLASS = 8
+CALTECH_N_CTX, CALTECH_PROMPTS = 16, 2  # the CLI's defaults --n_ctx and --num_prompt
+# Office-Caltech-10: 4 sites, 10 classes (data/datasets/domain.py:Office)
+OFFICE_SITES = ("amazon", "caltech", "dslr", "webcam")
+OFFICE_CLASSES = ("back_pack", "bike", "calculator", "headphones", "keyboard",
+                  "laptop_computer", "monitor", "mouse", "mug", "projector")
+OFFICE_TRAIN, OFFICE_TEST, OFFICE_HW = 40, 20, 300
 # CIFAR at its real width (32x32x3 uint8) and a tenth of its length
 CIFAR_TRAIN, CIFAR_TEST = 5000, 1000
 CIFAR10_CLASSES = ["airplane", "automobile", "bird", "cat", "deer", "dog", "frog", "horse",
@@ -329,10 +384,14 @@ def text_length(classnames, n_ctx=4) -> int:
 
 
 def kernel_shapes() -> dict:
-    """KERNEL_SHAPES and the widest text shape: PromptFL on CIFAR-100 (one
-    prompt bank x 100 classes x 8 heads) at its EOT-cut length."""
+    """KERNEL_SHAPES and the widest text shapes: PromptFL on CIFAR-100 (one
+    prompt bank x 100 classes x 8 heads) and the CLI's default run, GLP_OT
+    on Caltech101 (2 prompts x 100 classes x 8 heads, 16 context tokens),
+    each at its EOT-cut length."""
     return {**KERNEL_SHAPES,
-            "text_cifar100": (len(CIFAR100_CLASSES) * 8, text_length(CIFAR100_CLASSES), 64, True)}
+            "text_cifar100": (len(CIFAR100_CLASSES) * 8, text_length(CIFAR100_CLASSES), 64, True),
+            "text_caltech": (len(CALTECH_CLASSES) * CALTECH_PROMPTS * 8,
+                             text_length(CALTECH_CLASSES, CALTECH_N_CTX), 64, True)}
 
 
 def check_kernels(dev):
@@ -877,30 +936,34 @@ class CheckedRunner(ParallelRoundRunner):
 
 
 def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None,
-            parallel=False, opts=()):
+            parallel=False, opts=(), host_eval=False):
     """``fairfedmed_tpu_torch.federated_main.main`` with the flags of a
     launcher script (the real config files, batch 32 / 100), except
     ``--root`` and ``--output-dir`` (under ``build/``), ``--round``, no
     ``--parallel_clients`` (with ``parallel`` the script's own switch kept),
     ``overrides`` (``(flag, value, ...)`` tuples) and config ``opts`` last.
+    ``script`` None takes the CLI's own defaults (no flag but those).
     The kernel counters are zeroed just before and read just after; the
     expected counts come from the set sizes of the clients that the log (or
     with ``parallel`` the runner's rounds and evaluations) shows were
     trained and evaluated, and the runner's own step counts must equal
-    them.
+    them.  With ``host_eval`` a parallel run may evaluate a client on the
+    sequential path, where the runner refused its device eval cache (the
+    host transforms' datasets).
     ``on_build(trainer)`` runs once the CLI has built its trainer.  Returns
     what the path's checks read."""
     from fairfedmed_tpu_torch import federated_main as fm
 
     shutil.rmtree(out_dir, ignore_errors=True)
-    argv = script_flags(script, parallel=parallel)
+    argv = script_flags(script, parallel=parallel) if script is not None else []
     for flag, value in (("--root", data_root), ("--output-dir", out_dir), ("--round", str(rounds))):
         argv = set_flag(argv, flag, value)
     for flag, *values in overrides:
         argv = set_flag(argv, flag, *values)
     for flag in ("--config-file", "--dataset-config-file"):  # config paths from the repo
-        i = argv.index(flag)
-        argv[i + 1] = os.path.join(REPO, argv[i + 1])
+        if flag in argv:
+            i = argv.index(flag)
+            argv[i + 1] = os.path.join(REPO, argv[i + 1])
     argv += list(opts)
     args = fm.build_arg_parser().parse_args(argv)
     if parallel != ("--parallel_clients" in argv):
@@ -991,19 +1054,34 @@ def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None
                 c for c, n in zip(r["clients"], want) if n > 0)
             n_train += sum(want)
         n_eval = sum(len(cs) * max(-(-n_te[c] // bs_test) for c in cs) for cs in runner.eval_calls)
-        if n_eval != runner.eval_batches or sorted(evaluated) != sorted(
-                c for cs in runner.eval_calls for c in cs):
+        on_host = list(evaluated)  # the clients evaluated on the sequential path
+        for c in (c for cs in runner.eval_calls for c in cs):
+            if c in on_host:
+                on_host.remove(c)
+        if host_eval and any(runner._eval_cache.get(c) is not None for c in on_host):
+            raise AssertionError(f"clients {on_host} with an eval cache were evaluated on "
+                                 "the sequential path")
+        if n_eval != runner.eval_batches or (on_host and not host_eval) or len(on_host) + sum(
+                len(cs) for cs in runner.eval_calls) != len(evaluated):
             raise AssertionError(f"the runner evaluated {runner.eval_batches} batches for "
                                  f"{runner.eval_calls}, the data gives {n_eval}; the log "
                                  f"evaluated {evaluated}")
+        n_eval += sum(len(trainer.fed_test_loader_x_dict[c]) for c in on_host)
         steps = [{"loss": float(r["metrics"][j, i, 0]), "valid": float(r["metrics"][j, i, 1])}
                  for r in runner.resolved for j, n in enumerate(r["n_steps"]) for i in range(n)]
     else:
         trained = {}  # round -> clients, from "Save checkpoint to .../epoch{r}_client{i}.npz"
         for r, c in re.findall(r"Save checkpoint to .*epoch(\d+)_client(\d+)\.npz", log):
             trained.setdefault(int(r), []).append(int(c))
-        n_train = sum(len(trainer.fed_train_loader_x_dict[c])
-                      for cs in trained.values() for c in cs)
+        # each trained client runs OPTIM.MAX_EPOCH local epochs of its loader
+        # (1 in the FairFedMed launchers' configs, 5 in rn50.yaml, 30 in
+        # PromptFL/vit_b16.yaml)
+        local_epochs = trainer.cfg.OPTIM.MAX_EPOCH
+        n_train = local_epochs * sum(len(trainer.fed_train_loader_x_dict[c])
+                                     for cs in trained.values() for c in cs)
+        if sum(e["batches"] for e in epochs) != n_train:
+            raise AssertionError(f"the epochs ran {[e['batches'] for e in epochs]} batches, "
+                                 f"the data gives {n_train} over {local_epochs} epochs")
         n_eval = sum(len(trainer.fed_test_loader_x_dict[c]) for c in evaluated)
     # every batch runs each text block (and each ViT block) once.  The
     # backward reaches every text block (the prompt context sits before
@@ -1327,11 +1405,11 @@ def profile_step(trainer, batch, step_ms, phase="main_path_profile"):
             "top_kernels_ms": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]}
 
 
-def _check_ctx(finals, n_prompts, trainer):
-    """Every client's final prompt context is [n_prompts, 4 (--n_ctx), text
-    width]."""
+def _check_ctx(finals, n_prompts, trainer, n_ctx=4):
+    """Every client's final prompt context is [n_prompts, n_ctx (the
+    launchers' --n_ctx 4), text width]."""
     shapes = {i: z["prompt_learner.ctx"].shape for i, z in finals.items()}
-    if set(shapes.values()) != {(n_prompts, 4, trainer.bundle.clip_cfg.transformer_width)}:
+    if set(shapes.values()) != {(n_prompts, n_ctx, trainer.bundle.clip_cfg.transformer_width)}:
         raise AssertionError(f"final prompt contexts: {shapes}")
 
 
@@ -1818,45 +1896,232 @@ def cifar_path(dev):
     return total
 
 
+CALTECH_ROOT = os.path.join(REPO, "build", "chip_smoke_data_caltech")
+OFFICE_ROOT = os.path.join(REPO, "build", "chip_smoke_data_office")
+
+
+def _smooth_image(rng, h, w, gray=False):
+    """A uint8 photo-like image: coarse random colours upsampled by PIL,
+    with fine noise, so a JPEG of it is about a photo's size."""
+    from PIL import Image
+
+    coarse = rng.integers(0, 256, (max(2, h // 24), max(2, w // 24), 3), dtype=np.uint8)
+    img = np.asarray(Image.fromarray(coarse).resize((w, h), Image.BICUBIC), np.int16)
+    img = np.clip(img + rng.integers(-12, 13, img.shape), 0, 255).astype(np.uint8)
+    out = Image.fromarray(img)
+    return out.convert("L") if gray else out
+
+
+def write_caltech_fixture(root, seed=11):
+    """Caltech-101's layout (``caltech-101/101_ObjectCategories/<folder>/``),
+    written with PIL: CALTECH_PER_CLASS JPEGs (quality 90) in each of its 102
+    folders, the short edge 200-300 and the long edge 250-400 px, one in ten
+    grayscale (the dataset converts it to RGB)."""
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, "caltech-101", "101_ObjectCategories")
+    files, nbytes, n_gray = 0, 0, 0
+    for folder in CALTECH_FOLDERS:
+        os.makedirs(os.path.join(base, folder))
+        for i in range(CALTECH_PER_CLASS):
+            short, long_ = int(rng.integers(200, 301)), int(rng.integers(250, 401))
+            long_ = max(long_, short)
+            h, w = (short, long_) if rng.random() < 0.7 else (long_, short)
+            gray = rng.random() < 0.1
+            path = os.path.join(base, folder, f"image_{i + 1:04d}.jpg")
+            _smooth_image(rng, h, w, gray).save(path, quality=90)
+            files, nbytes, n_gray = files + 1, nbytes + os.path.getsize(path), n_gray + gray
+    return {"folders": len(CALTECH_FOLDERS), "files": files, "bytes": nbytes, "gray": n_gray}
+
+
+def write_office_fixture(root, seed=12):
+    """Office-Caltech-10 in the layout of tests/fixtures.py:make_domain_fixture:
+    ``office_caltech_10/{site}_{train,test}.pkl`` numpy pickles of (paths,
+    text labels) and the JPEGs they name, OFFICE_TRAIN / OFFICE_TEST of
+    OFFICE_HW x OFFICE_HW per site, the labels cycling through the 10
+    classes."""
+    rng = np.random.default_rng(seed)
+    pdir = os.path.join(root, "office_caltech_10")
+    os.makedirs(pdir)
+    files, nbytes = 0, 0
+    for site in OFFICE_SITES:
+        for split, n in (("train", OFFICE_TRAIN), ("test", OFFICE_TEST)):
+            paths, labels = [], []
+            for i in range(n):
+                rel = os.path.join("office_caltech_10", "imgs", site, f"{split}_{i}.jpg")
+                full = os.path.join(root, rel)
+                os.makedirs(os.path.dirname(full), exist_ok=True)
+                _smooth_image(rng, OFFICE_HW, OFFICE_HW).save(full, quality=90)
+                files, nbytes = files + 1, nbytes + os.path.getsize(full)
+                paths.append(rel)
+                labels.append(OFFICE_CLASSES[i % len(OFFICE_CLASSES)])
+            with open(os.path.join(pdir, f"{site}_{split}.pkl"), "wb") as f:
+                np.save(f, np.array([np.array(paths, dtype=object),
+                                     np.array(labels, dtype=object)], dtype=object),
+                        allow_pickle=True)
+    return {"sites": len(OFFICE_SITES), "files": files, "bytes": nbytes}
+
+
+def _text_length_of(trainer) -> int:
+    """The text tower's length in the run: the prompts' last EOT, rounded up
+    to a multiple of 8 (models/clip_model.py:text_encode)."""
+    eot = int(np.asarray(trainer.prompt_state.eot_indices).max()) + 1
+    return min(77, max(8, -(-eot // 8) * 8))
+
+
+def _check_imagefolder_run(phase, res, trainer, n_cls, n_users):
+    """A run on an image-folder dataset: the classes, the text length of the
+    kernel check's shape, a valid OT plan on every step, the host transform
+    built (and no device preprocessing), every client evaluated."""
+    shape = kernel_shapes()["text_caltech"] if n_cls == len(CALTECH_CLASSES) else None
+    if trainer.n_cls != n_cls or trainer._cifar is not None \
+            or trainer.fed_train_loader_x_dict[0].transform is None:
+        raise AssertionError(f"{phase}: {trainer.n_cls} classes, CIFAR preprocess "
+                             f"{trainer._cifar}, transform "
+                             f"{trainer.fed_train_loader_x_dict[0].transform}")
+    if shape is not None and (res["text_length"] != shape[1] or res["text_rows"] != shape[0]):
+        raise AssertionError(f"{phase}: text [{res['text_rows']}, {res['text_length']}] is not "
+                             f"the kernel check's {shape[:2]}")
+    if res["valid_plans"] != len(res["steps"]):
+        raise AssertionError(f"{phase}: {res['valid_plans']} valid OT plans of "
+                             f"{len(res['steps'])} steps")
+    if sorted(set(res["evaluated_clients"])) != list(range(n_users)):
+        raise AssertionError(f"{phase}: evaluated {res['evaluated_clients']}")
+
+
+def _imagefolder_res(phase, res, trainer, fixture, n_prompts):
+    heads = trainer.bundle.clip_cfg.transformer_heads
+    res = {"phase": phase, **res, "fixture": fixture, "n_cls": trainer.n_cls,
+           "text_length": _text_length_of(trainer),
+           "text_rows": trainer.n_cls * n_prompts * heads,
+           "valid_plans": sum(1 for st in res["steps"]
+                              if np.isfinite(st["loss"]) and st.get("valid", 1) == 1)}
+    res.pop("runner", None)
+    return res
+
+
+def _check_default_run(res, model):
+    """The run is the CLI's default branch (FedOTP over GLP_OT) at ``model``."""
+    if (res["model"], res["trainer"], res["aggregation"]) != (model, "GLP_OT", "FedOTP"):
+        raise AssertionError(f"not the CLI's default run at {model}: {res['argv']}")
+
+
+def caltech_path(dev):
+    """The JAX CLI's default run, ``python -m fairfedmed_tpu_torch.federated_main
+    --root <tree> --output-dir <dir> --round 2`` and no other flag:
+    FedOTP over GLP_OT, RN50 from configs/trainers/GLP_OT/rn50.yaml at full
+    width (bf16, 5 local epochs, batch 32 / 100, bicubic random resized crop,
+    flip, normalize on the host), Caltech101, COT, 16 context tokens, 2
+    prompts, 10 users of 2 shots, sequential; on a Caltech-101 tree of 102
+    folders x 8 JPEGs written here.  Round 0 and round 1 train all 10
+    clients (frac 1)."""
+    fixture = _write_fixture_with(write_caltech_fixture, CALTECH_ROOT)
+    out_dir = os.path.join(REPO, "build", "chip_smoke_caltech")
+    with contextlib.chdir(REPO):  # the defaults name the config files from the repository root
+        res, finals, trainer = run_cli(None, CALTECH_ROOT, out_dir, 2, dev)
+    res = _imagefolder_res("caltech_path", res, trainer, fixture, CALTECH_PROMPTS)
+    res["ot_iterations_last_step"] = int(trainer.ot_iterations)
+    emit(res)
+    check_cli_run(res, 2, (10, 10), with_auc=False)
+    _check_imagefolder_run("caltech_path", res, trainer, len(CALTECH_CLASSES), 10)
+    _check_default_run(res, "RN50")
+    _check_ctx(finals, CALTECH_PROMPTS, trainer, CALTECH_N_CTX)
+    _summary("caltech_path", res)
+    return res["launches"]
+
+
+def caltech_vit_parallel(dev):
+    """The default run with ``--config-file configs/trainers/GLP_OT/vit_b16.yaml
+    --parallel_clients --round 2`` on caltech_path's tree: ViT-B/16, so the
+    vision kernel runs at [384, 197, 64] (a client's 20 images padded to the
+    batch of 32).  The host transforms refuse every device cache, train and
+    eval: each round assembles its batches on the host and evaluates on the
+    sequential path, and its dispatch half waits for the device nowhere."""
+    out_dir = os.path.join(REPO, "build", "chip_smoke_caltech_vit_parallel")
+    with contextlib.chdir(REPO):
+        res, finals, trainer = run_cli(
+            None, CALTECH_ROOT, out_dir, 2, dev, parallel=True, host_eval=True,
+            overrides=(("--config-file", "configs/trainers/GLP_OT/vit_b16.yaml"),
+                       ("--parallel_clients",)))
+    res = _imagefolder_res("caltech_vit_parallel", res, trainer, None, CALTECH_PROMPTS)
+    emit(res)
+    check_cli_run(res, 2, (10, 10), with_auc=False)
+    _check_imagefolder_run("caltech_vit_parallel", res, trainer, len(CALTECH_CLASSES), 10)
+    if res["cache_bytes"] != 0 or res["cached_clients"] != {"train": [], "eval": []}:
+        raise AssertionError(f"a device cache was built on the host transforms' path: "
+                             f"{res['cached_clients']} {res['cache_bytes']}")
+    _check_default_run(res, "ViT-B/16")
+    _check_ctx(finals, CALTECH_PROMPTS, trainer, CALTECH_N_CTX)
+    _summary("caltech_vit_parallel", res)
+    return res["launches"]
+
+
+def office_path(dev):
+    """``--model fedavg --trainer PromptFL --config-file
+    configs/trainers/PromptFL/vit_b16.yaml --dataset-config-file
+    configs/datasets/office.yaml --num_users 4 --round 1``, sequential, on an
+    Office-Caltech-10 tree written here (4 sites, one client each, 40 train
+    / 20 test JPEGs of 300x300 per site)."""
+    fixture = _write_fixture_with(write_office_fixture, OFFICE_ROOT)
+    out_dir = os.path.join(REPO, "build", "chip_smoke_office")
+    overrides = (("--model", "fedavg"), ("--trainer", "PromptFL"),
+                 ("--config-file", "configs/trainers/PromptFL/vit_b16.yaml"),
+                 ("--dataset-config-file", "configs/datasets/office.yaml"),
+                 ("--num_users", "4"))
+    with contextlib.chdir(REPO):
+        res, finals, trainer = run_cli(None, OFFICE_ROOT, out_dir, 1, dev, overrides)
+    res = _imagefolder_res("office_path", res, trainer, fixture, 1)
+    emit(res)
+    check_cli_run(res, 1, (4,), with_auc=False)
+    _check_imagefolder_run("office_path", res, trainer, len(OFFICE_CLASSES), 4)
+    _check_ctx(finals, 1, trainer, 16)
+    _summary("office_path", res)
+    return res["launches"]
+
+
 PATHS = ("main_path", "cli_path", "oct_path", "rn50_path", "rn50_oct_path", "ot_path",
          "promptfl_path", "fedotp_path", "clip_path", "fedprox_path", "parallel_cli_path",
          "parallel_oct_path", "parallel_rn50_path", "parallel_branches", "parallel_equiv",
-         "chexmimic_path", "parallel_chexmimic", "cifar_path")
+         "chexmimic_path", "parallel_chexmimic", "cifar_path", "caltech_path",
+         "caltech_vit_parallel", "office_path")
 
 
 def kernels_line(rows, launches):
-    """The two kernels at the vision training shape in bf16, the shape and type
-    the main path spends most of its attention time on, with the tensor-core
-    kernels' resources: registers and spills from ptxas, shared memory and
-    resident blocks from the CUDA runtime, waves = blocks / (SMs x resident
-    blocks per SM), and bound share = bound / cold time.  ``launches`` is
-    main_path's count, ``launches_<path>`` every other path's."""
-    row = next(r for r in rows if r["shape"] == "vision_train" and r["dtype"] == "bfloat16")
-    n, length, dh = row["n_L_dh"]
+    """The two kernels in bf16 at the vision training shape, the shape and
+    type the main path spends most of its attention time on, and at the
+    CLI's default run's text shape (GLP_OT on Caltech101), with the
+    tensor-core kernels' resources: registers and spills from ptxas, shared
+    memory and resident blocks from the CUDA runtime, waves = blocks / (SMs x
+    resident blocks per SM), and bound share = bound / cold time.
+    ``launches`` is main_path's count, ``launches_<path>`` every other
+    path's (counts are per kernel, the same on both shapes' rows)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = []
-    for kind, tpu_line in (("fwd", "fairfedmed_tpu/ops/attention.py:37 (_fwd_kernel, via "
-                                    "_attend_impl :105)"),
-                           ("bwd", "fairfedmed_tpu/ops/attention.py:54 (_bwd_kernel, via "
-                                   "_attend_bwd_impl :118)")):
-        name = f"attention_{kind}"
-        log = _build.library_path(name).with_suffix(".log").read_text()
-        info = A.launch_info(kind, n, length, dh)
-        out.append(dict(
-            ptxas_kernel(log, f"{name}_mma_kernelILi{dh}E"), name=name, route="cuda",
-            source=f"fairfedmed_tpu_torch/csrc/{name}.cu", replaces=tpu_line,
-            launches=launches["main_path"][name],
-            **{f"launches_{p}": launches[p][name] for p in PATHS[1:]},
-            max_abs_err=row[f"{kind}_max_abs_err"],
-            ms=row[f"kernel_{kind}_ms"], ms_cold=row[f"kernel_{kind}_ms_cold"],
-            ms_events=row[f"kernel_{kind}_ms_events"], host_ms=row[f"kernel_{kind}_host_ms"],
-            plain_ms=row[f"plain_{kind}_ms"], bound_ms=row[f"{kind}_bound_ms"],
-            bound_by=row[f"{kind}_bound_by"], library_ms=row[f"sdpa_{kind}_ms"],
-            library_ms_cold=row[f"sdpa_{kind}_ms_cold"],
-            bound_share=row[f"{kind}_bound_ms"] / row[f"kernel_{kind}_ms_cold"],
-            smem_bytes=info["smem_bytes"], threads=info["threads"],
-            blocks=info["blocks"], blocks_per_sm=info["blocks_per_sm"],
-            waves=info["blocks"] / (sms * info["blocks_per_sm"])))
+    for shape in ("vision_train", "text_caltech"):
+        row = next(r for r in rows if r["shape"] == shape and r["dtype"] == "bfloat16")
+        n, length, dh = row["n_L_dh"]
+        for kind, tpu_line in (("fwd", "fairfedmed_tpu/ops/attention.py:37 (_fwd_kernel, via "
+                                        "_attend_impl :105)"),
+                               ("bwd", "fairfedmed_tpu/ops/attention.py:54 (_bwd_kernel, via "
+                                       "_attend_bwd_impl :118)")):
+            name = f"attention_{kind}"
+            log = _build.library_path(name).with_suffix(".log").read_text()
+            info = A.launch_info(kind, n, length, dh)
+            out.append(dict(
+                ptxas_kernel(log, f"{name}_mma_kernelILi{dh}E"), name=name, route="cuda",
+                source=f"fairfedmed_tpu_torch/csrc/{name}.cu", replaces=tpu_line,
+                shape=shape, n_L_dh=[n, length, dh], causal=row["causal"],
+                launches=launches["main_path"][name],
+                **{f"launches_{p}": launches[p][name] for p in PATHS[1:]},
+                max_abs_err=row[f"{kind}_max_abs_err"],
+                ms=row[f"kernel_{kind}_ms"], ms_cold=row[f"kernel_{kind}_ms_cold"],
+                ms_events=row[f"kernel_{kind}_ms_events"], host_ms=row[f"kernel_{kind}_host_ms"],
+                plain_ms=row[f"plain_{kind}_ms"], bound_ms=row[f"{kind}_bound_ms"],
+                bound_by=row[f"{kind}_bound_by"], library_ms=row[f"sdpa_{kind}_ms"],
+                library_ms_cold=row[f"sdpa_{kind}_ms_cold"],
+                bound_share=row[f"{kind}_bound_ms"] / row[f"kernel_{kind}_ms_cold"],
+                smem_bytes=info["smem_bytes"], threads=info["threads"],
+                blocks=info["blocks"], blocks_per_sm=info["blocks_per_sm"],
+                waves=info["blocks"] / (sms * info["blocks_per_sm"])))
     return {"kernels": out}
 
 

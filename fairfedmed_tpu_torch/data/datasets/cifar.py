@@ -78,15 +78,19 @@ class ArrayClientSplit:
         return self.images[i], int(self.labels_arr[i]), None
 
 
-def build_client_splits(cfg, X_train, y_train, X_test, y_test, num_classes: int):
+def build_client_splits(cfg, X_train, y_train, X_test, y_test, num_classes: int,
+                        expand=None):
     """Partition label arrays per cfg and wrap each client's slice in
-    ArrayClientSplit."""
+    ArrayClientSplit, for every array dataset (CIFAR, the MNIST family,
+    FEMNIST).  ``expand`` maps a raw image array to the loader's layout
+    (e.g. adding a channel axis)."""
+    expand = expand or (lambda x: x)
     idx_train, idx_test = partition_indices(
         y_train, y_test, cfg.DATASET.PARTITION, cfg.DATASET.USERS,
         beta=cfg.DATASET.BETA, num_classes=num_classes)
-    fed_train = [ArrayClientSplit(X_train[idx_train[i]], y_train[idx_train[i]])
+    fed_train = [ArrayClientSplit(expand(X_train[idx_train[i]]), y_train[idx_train[i]])
                  for i in range(cfg.DATASET.USERS)]
-    fed_test = [ArrayClientSplit(X_test[idx_test[i]], y_test[idx_test[i]])
+    fed_test = [ArrayClientSplit(expand(X_test[idx_test[i]]), y_test[idx_test[i]])
                 for i in range(cfg.DATASET.USERS)]
     return fed_train, fed_test
 

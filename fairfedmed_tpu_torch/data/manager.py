@@ -13,10 +13,10 @@ numpy batching:
 * shuffling draws from numpy's global RNG (``np.random.permutation``), which
   the CLI seeds, so one seed gives the same batches here and in the JAX
   package;
-* a structured ``DATALOADER.TRAIN_X.SAMPLER`` needs a dataset with a Datum
-  list (``.items``); a client dataset without one (FairFedMed) shuffles at
-  random after one warning, as in the JAX package.  The samplers themselves
-  are not ported yet (ROADMAP M14b);
+* a structured ``DATALOADER.TRAIN_X.SAMPLER`` (``data/samplers.py``) needs a
+  dataset with a Datum list (``.items``, the image-folder datasets); a
+  client dataset without one (FairFedMed, the array datasets) shuffles at
+  random after one warning, as in the JAX package;
 * a dataset's items may carry no attributes (CIFAR): its batches then hold
   no ``attrs``.
 
@@ -33,17 +33,14 @@ import torch
 
 from ..utils.registry import DATASET_REGISTRY
 from ..utils.tools import ascii_table
+from .samplers import build_sampler
 from .transforms import build_transform
 
 
 def build_dataset(cfg):
-    from . import datasets  # noqa: F401  (registers the ported datasets)
+    from . import datasets  # noqa: F401  (registers the datasets)
 
-    name = cfg.DATASET.NAME
-    if name not in DATASET_REGISTRY.registered_names():
-        raise NotImplementedError(f"dataset {name!r} is not ported yet (ROADMAP M14b); "
-                                  f"ported: {DATASET_REGISTRY.registered_names()}")
-    return DATASET_REGISTRY.get(name)(cfg)
+    return DATASET_REGISTRY.get(cfg.DATASET.NAME)(cfg)
 
 
 class ClientLoader:
@@ -52,27 +49,38 @@ class ClientLoader:
     ``dataset`` needs ``__len__`` and ``load_item(i) -> (img, label, attrs|None)``;
     optional ``labels``/``attrs_matrix``/``count_by_attribute`` pass through,
     and ``prefetch``/``clear_prefetch`` when present queue the next batch on
-    the native decode pool.
+    the native decode pool.  A ``sampler`` gives the index stream in place
+    of the shuffle.
     """
 
     def __init__(self, dataset, batch_size: int, is_train: bool,
-                 transform=None, pad_final: bool = True):
+                 transform=None, pad_final: bool = True, sampler=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.is_train = is_train
         self.transform = transform
         self.pad_final = pad_final and not is_train
+        self.sampler = sampler
 
     def _drop_last(self, n_stream: int) -> bool:
+        # on the length of the actual index stream, not len(dataset): a
+        # structured sampler can yield fewer than batch_size indices (e.g.
+        # RandomClassSampler on a client owning one class), which dropping
+        # by the dataset's length would train zero batches
         return self.is_train and n_stream >= self.batch_size
 
     def __len__(self):
-        n = len(self.dataset)
+        # with a sampler whose stream length varies per epoch
+        # (RandomDomainSampler) an estimate from its reported length;
+        # __iter__ recomputes from the actual stream
+        n = len(self.sampler) if self.sampler is not None else len(self.dataset)
         if self._drop_last(n):
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
     def _indices(self):
+        if self.sampler is not None:
+            return np.asarray(list(self.sampler))
         n = len(self.dataset)
         if self.is_train:
             return np.random.permutation(n)
@@ -143,12 +151,17 @@ class DataManager:
         warned_sampler = False
         for idx in range(cfg.DATASET.USERS):
             client_ds = dataset.federated_train_x[idx]
+            sampler = None
             if stype not in ("RandomSampler", "SequentialSampler"):
-                # structured samplers need a Datum list (JAX manager.py:141-158)
+                # structured samplers need a Datum list (JAX manager.py:141-158);
+                # Random/Sequential take the loader's own index paths
                 if hasattr(client_ds, "items"):
-                    raise NotImplementedError(f"sampler {stype!r} is not ported yet "
-                                              "(ROADMAP M14b: data/samplers.py)")
-                if not warned_sampler:  # once, on the first client it concerns
+                    sampler = build_sampler(
+                        stype, cfg, data_source=client_ds.items,
+                        batch_size=cfg.DATALOADER.TRAIN_X.BATCH_SIZE,
+                        n_domain=cfg.DATALOADER.TRAIN_X.N_DOMAIN,
+                        n_ins=cfg.DATALOADER.TRAIN_X.N_INS)
+                elif not warned_sampler:  # once, on the first client it concerns
                     warned_sampler = True
                     print(f"WARNING: sampler {stype!r} requires a Datum-list "
                           f"dataset (.items); {type(client_ds).__name__} has "
@@ -159,6 +172,7 @@ class DataManager:
                 batch_size=cfg.DATALOADER.TRAIN_X.BATCH_SIZE,
                 is_train=True,
                 transform=tfm_train,
+                sampler=sampler,
             )
             self.fed_test_loader_x_dict[idx] = ClientLoader(
                 dataset.federated_test_x[idx],

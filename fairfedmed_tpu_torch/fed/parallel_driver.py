@@ -167,13 +167,15 @@ class ParallelRoundRunner:
     def _decode_loader(self, loader):
         """A client loader's whole dataset in index order as (imgs, labels,
         attrs), or None when it cannot be cached: a host transform (the
-        images change per epoch), no ``load_item``, an empty set, or a set
+        images change per epoch), a structured sampler (its stream is not a
+        permutation of the indices), no ``load_item``, an empty set, or a set
         that would take the fleet-wide cache (train and eval, every client)
         over its budget.  ``load_item_u8`` comes first; other integral fp32
         sets are stored as uint8, equal after the step's cast to float (JAX
         parallel_driver.py:198-313)."""
         ds = loader.dataset
-        if loader.transform is not None or not hasattr(ds, "load_item"):
+        if (loader.transform is not None or getattr(loader, "sampler", None) is not None
+                or not hasattr(ds, "load_item")):
             return None
         n = len(ds)
         if n == 0:

@@ -42,15 +42,13 @@ from ...models.clip_model import l2_normalize, pool_index, text_encode, vit_enco
 from ...models.prompt_learner import assemble_prompts, init_prompt_learner
 from ...models.resnet_clip import resnet_encode
 from ...ops.sinkhorn import entropic_cot, sinkhorn
-from ...utils.registry import TRAINER_REGISTRY
+from ...utils.registry import DATASET_REGISTRY, TRAINER_REGISTRY
 from ..clip_common import (accuracy_from_logits, cross_entropy, fairness_confidence_loss,
                            fedprox_term, load_clip_bundle)
 from ..engine import TrainerX
 from ..optim import FunctionalOptimizer, build_lr_scheduler, build_optimizer, set_learning_rate
 
 MEDICAL_DATASETS = ("FairFedMed", "FedChexMimic", "WangGrant")
-# the datasets the port has, on which the JAX trainers run these branches
-PORTED_DATASETS = ("FairFedMed", "FedChexMimic", "Cifar10", "Cifar100")
 MODALITY_3D = ("oct_bscans", "oct_bscans_3d", "mac_onh", "onh_mac")
 OT_METHODS = ("None", "Sinkhorn", "COT")
 
@@ -101,10 +99,11 @@ def _stat_key(path: str) -> str:
 
 
 def check_dataset(cfg):
-    """Raise for a dataset the port has not got (ROADMAP M14b)."""
-    if cfg.DATASET.NAME not in PORTED_DATASETS:
-        raise NotImplementedError(f"dataset {cfg.DATASET.NAME} is not ported yet "
-                                  f"(ROADMAP M14b); ported: {list(PORTED_DATASETS)}")
+    """Raise for a dataset name that is not registered (the port registers
+    every dataset of the JAX package)."""
+    from ...data import datasets  # noqa: F401  (registers the datasets)
+
+    DATASET_REGISTRY.get(cfg.DATASET.NAME)
 
 
 class GLPOTBase(TrainerX):
@@ -250,10 +249,14 @@ class GLPOTBase(TrainerX):
         volumes the slice projector and a per-slice min-max, then the CLIP
         mean/std.  The projector's /255 is folded into its (tiny) weight; the
         conv runs in the compute type, the bias and min-max in fp32.  CIFAR
-        batches take ``CifarPreprocess`` instead (JAX glp_ot.py:295-303)."""
+        batches take ``CifarPreprocess`` instead (JAX glp_ot.py:295-303);
+        the other datasets' batches come normalised from the host transforms
+        and pass unchanged (JAX glp_ot.py:265-303)."""
         if self._cifar is not None:
             return self._cifar(image)
         x = image.float()
+        if self.cfg.DATASET.NAME not in MEDICAL_DATASETS:
+            return x
         if self.is_3d_input:
             _, _, h, w = x.shape
             x = x.reshape(-1, self.dim_per_3d_slice, h, w)  # volume v -> rows v*S .. v*S+S-1

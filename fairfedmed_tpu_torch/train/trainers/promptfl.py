@@ -19,9 +19,11 @@ loader's raw 0-255 pixels, as the reference forward does;
 ``TRAINER.PROMPTFL.NORMALIZE_MEDICAL_INPUT`` opts into CLIP's /255 and
 mean/std.  CIFAR-10/100 batches (uint8 NHWC) are normalised and resized on
 the device inside the step (``data/transforms.py:CifarPreprocess``, JAX
-promptfl.py:87-94).  The logits are ``exp(logit_scale) * (im @ txt^T)`` over the
-l2-normalised features, the product in the compute type and then cast to
-fp32, as the JAX package computes it.
+promptfl.py:87-94); the other datasets' batches come normalised from the host
+transforms and pass unchanged (JAX promptfl.py:72-95).  The logits are
+``exp(logit_scale) * (im @ txt^T)`` over the l2-normalised features, the
+product in the compute type and then cast to fp32, as the JAX package
+computes it.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from ...utils.registry import TRAINER_REGISTRY
 from ..clip_common import accuracy_from_logits, cross_entropy, fedprox_term, load_clip_bundle
 from ..engine import TrainerX
 from ..optim import FunctionalOptimizer, build_lr_scheduler, build_optimizer, set_learning_rate
-from .glp_ot import check_dataset
+from .glp_ot import MEDICAL_DATASETS, check_dataset
 
 
 class _CosineCLIPTrainer(TrainerX):
@@ -96,7 +98,8 @@ class _CosineCLIPTrainer(TrainerX):
         if self._cifar is not None:
             return self._cifar(image)
         x = image.float()
-        if getattr(self.cfg.TRAINER[self.prec_node], "NORMALIZE_MEDICAL_INPUT", False):
+        if (self.cfg.DATASET.NAME in MEDICAL_DATASETS
+                and getattr(self.cfg.TRAINER[self.prec_node], "NORMALIZE_MEDICAL_INPUT", False)):
             x = (x / 255.0 - self._pixel_mean) / self._pixel_std
         return x
 

@@ -13,6 +13,7 @@ to atol 1e-3 on the 0-255 scale (float32 rounding of the same weights).
 
 import json
 import os
+import random
 
 import numpy as np
 import pytest
@@ -275,7 +276,7 @@ def test_data_manager_matches_across_clients(roots):
             [jd[c].dataset.count_by_attribute("language") for c in (0, 1)]
 
 
-def test_prefetch_to_device_on_cpu_and_unported_options(roots):
+def test_prefetch_to_device_on_cpu_and_unported_options(roots, tmp_path):
     _, tcfg = _cfgs(roots[32])
     tdm = tmanager.DataManager(tcfg)
     loader = tdm.fed_test_loader_x_dict[0]
@@ -288,21 +289,47 @@ def test_prefetch_to_device_on_cpu_and_unported_options(roots):
             assert isinstance(g[k], torch.Tensor) and g[k].device.type == "cpu"
             np.testing.assert_array_equal(g[k].numpy(), w[k])
     _, cfg = _cfgs(roots[32])
-    cfg.merge_from_list(["DATASET.NAME", "Caltech101"])  # a dataset not ported yet
-    with pytest.raises(NotImplementedError, match="not ported yet .ROADMAP M14b"):
+    cfg.merge_from_list(["DATASET.NAME", "NoSuchDataset"])  # a name the JAX package lacks
+    with pytest.raises(KeyError, match="NoSuchDataset"):
         tmanager.DataManager(cfg)
-    # a structured sampler on a dataset without a Datum list shuffles at
-    # random (the samplers are not ported; FairFedMed needs none): the same
-    # batches as RandomSampler's from the same seed
+    # a structured sampler on a dataset without a Datum list (FairFedMed)
+    # shuffles at random: no sampler, the same batches as RandomSampler's
+    # from the same seed
     batches = {}
     for stype in ("RandomSampler", "RandomDomainSampler"):
         _, cfg = _cfgs(roots[32])
         cfg.merge_from_list(["DATALOADER.TRAIN_X.SAMPLER", stype])
         np.random.seed(3)
-        batches[stype] = [b["label"] for b in tmanager.DataManager(cfg).fed_train_loader_x_dict[0]]
+        dm = tmanager.DataManager(cfg)
+        assert dm.fed_train_loader_x_dict[0].sampler is None
+        batches[stype] = [b["label"] for b in dm.fed_train_loader_x_dict[0]]
     assert len(batches["RandomSampler"]) > 0
     for got, want in zip(batches["RandomDomainSampler"], batches["RandomSampler"], strict=True):
         np.testing.assert_array_equal(got, want)
+    # on a dataset with a Datum list (Caltech101) the ported samplers run, as
+    # the JAX package's do
+    from fairfedmed_tpu.data import samplers as jsamplers
+    from fairfedmed_tpu_torch.data import samplers as tsamplers
+    from tests.fixtures import make_imagefolder_fixture
+
+    for stype, opts in (("RandomClassSampler", ["DATALOADER.TRAIN_X.N_INS", "2"]),
+                        ("SeqDomainSampler", [])):
+        labels = {}
+        for name, mod, smod, cfg in (("jax", jmanager, jsamplers, jax_cfg_default()),
+                                     ("port", tmanager, tsamplers, port_cfg_default())):
+            root = tmp_path / f"{stype}_{name}"
+            make_imagefolder_fixture(str(root), n_classes=4, n_per_class=10)
+            cfg.merge_from_list(["DATASET.NAME", "Caltech101", "DATASET.ROOT", str(root),
+                                 "DATASET.USERS", "2", "DATASET.NUM_SHOTS", "4",
+                                 "DATALOADER.TRAIN_X.SAMPLER", stype,
+                                 "DATALOADER.TRAIN_X.BATCH_SIZE", "4", "INPUT.NO_TRANSFORM",
+                                 "True", *opts])
+            random.seed(1)
+            np.random.seed(1)
+            loader = mod.DataManager(cfg).fed_train_loader_x_dict[0]
+            assert type(loader.sampler) is getattr(smod, stype)
+            labels[name] = [b["label"].tolist() for _ in range(2) for b in loader]
+        assert labels["port"] == labels["jax"] and labels["jax"], labels
 
 
 class _ListDataset:

@@ -386,18 +386,25 @@ def test_pil_is_imported_only_to_decode():
 
 
 def test_unported_datasets_raise_naming_the_roadmap_item():
-    for name in ("Caltech101", "WangGrant"):
-        cfg = port_cfg_default()
-        cfg.DATASET.NAME = name
-        with pytest.raises(NotImplementedError, match="M14b"):
-            tglp.check_dataset(cfg)
-        with pytest.raises(NotImplementedError, match="M14b"):
-            tmanager.build_dataset(cfg)
+    """Every dataset of the JAX registry is registered in the port and passes
+    the trainers' gate; the host transforms are None exactly for the medical
+    and in-memory datasets.  Only a name the JAX package does not know
+    raises."""
+    from fairfedmed_tpu.data import datasets as jdatasets  # noqa: F401  (register)
+    from fairfedmed_tpu.utils.registry import DATASET_REGISTRY as JREG
+    from fairfedmed_tpu_torch.data import datasets as tdatasets  # noqa: F401
+    from fairfedmed_tpu_torch.utils.registry import DATASET_REGISTRY as TREG
+
+    assert TREG.registered_names() == JREG.registered_names()
     cfg = port_cfg_default()
-    cfg.DATASET.NAME = "Caltech101"
-    with pytest.raises(NotImplementedError, match="M14b"):
-        ttransforms.build_transform(cfg)
-    for name in tglp.PORTED_DATASETS:
+    cfg.INPUT.TRANSFORMS = ("random_flip", "normalize")
+    on_device = ttransforms.MEDICAL_DATASETS | ttransforms.IN_MEMORY_DATASETS
+    for name in JREG.registered_names():
         cfg.DATASET.NAME = name
         tglp.check_dataset(cfg)
-        assert ttransforms.build_transform(cfg) is None
+        assert (ttransforms.build_transform(cfg) is None) == (name in on_device), name
+    cfg.DATASET.NAME = "NoSuchDataset"
+    with pytest.raises(KeyError, match="NoSuchDataset"):
+        tglp.check_dataset(cfg)
+    with pytest.raises(KeyError, match="NoSuchDataset"):
+        tmanager.build_dataset(cfg)
