@@ -146,6 +146,29 @@ Phases, each printing one JSON line:
      300x300), sequential.
    Each checks the classes, a valid OT plan on every step, every client
    evaluated, and prints a summary line with the host data time per batch.
+11. Round checkpoints, the Baseline trainer and the standalone CLI:
+   - ``resume_path``: the FairLoRA launcher with its ``--parallel_clients``
+     and ``TRAIN.CHECKPOINT_FREQ 1`` on cli_path's fixture: 2 rounds under
+     ``FAIRFEDMED_ROUND_CKPT`` (only ``step_1`` left, equal bit for bit to
+     the runner's state after round 1, LR step counter 10), then ``--round
+     4 --resume DIR`` (continues at epoch 2, restores step_1 bit for bit,
+     runs rounds 2 and 3, leaves ``step_3``), then ``--resume DIR`` with
+     another ``--attribute_type`` (ignored, rounds 0 and 1); one metrics
+     fetch per round and one fetch per checkpoint; save and load ms and
+     bytes per checkpoint;
+   - ``baseline_path``: the Baseline trainer on the GPU against the CPU at
+     a small size, then ``--model fedavg --trainer Baseline`` through the
+     CLI, 1 round each: ResNet-50 and the Dassl ViT-B/16 on the SLO fixture
+     at 224, ResNet-18 with the mlp head on cifar_path's CIFAR-10 fixture,
+     cnn3 there with ``--parallel_clients`` (the sequential notice); fp32,
+     no kernel launch;
+   - ``train_cli_path``: ``python -m fairfedmed_tpu_torch.tools.train`` with
+     GLP_OT_SVLoRA at ViT-B/16 on one SLO site: train 2 epochs and save;
+     ``--eval-only`` from the checkpoint gives the same test results;
+     ``--resume`` restarts at the saved epoch (nothing to train at 2
+     epochs, the third epoch only at 3).
+   Phase names given as arguments run only those phases after the kernel
+   checks (a debugging aid: no kernels line and no final ``ok`` line).
 
 Every path zeroes the kernel launch counters just before it runs and reads
 them just after; the counts must equal what the layer structure implies.
@@ -184,10 +207,11 @@ import torch.nn.functional as F
 
 from fairfedmed_tpu_torch.config import get_cfg_default
 from fairfedmed_tpu_torch.fed.aggregate import average_weights_ema
-from fairfedmed_tpu_torch.fed.parallel_driver import ParallelRoundRunner
+from fairfedmed_tpu_torch.fed.parallel_driver import ROUND_CKPT_ENV, ParallelRoundRunner
 from fairfedmed_tpu_torch.ops import _build
 from fairfedmed_tpu_torch.ops import attention as A
 from fairfedmed_tpu_torch.ops.sinkhorn import entropic_cot, sinkhorn
+from fairfedmed_tpu_torch.train.checkpoint import TREE_FILE, load_pytree
 from fairfedmed_tpu_torch.train.engine import build_trainer
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -884,7 +908,33 @@ class CheckedRunner(ParallelRoundRunner):
         super().__init__(*args, **kwargs)
         self.dispatches, self.resolved, self.eval_batches, self._data_s = [], [], 0, 0.0
         self.eval_calls = []  # the clients of each evaluation enqueued
+        self.saves, self.loads = [], []  # round checkpoints written and restored
         CheckedRunner.last = self
+
+    def save_round_state(self, directory, epoch, state=None, lr_steps=None):
+        """A round checkpoint, timed (it ends in its own fetch and the file
+        write), with its device waits recorded apart from the resolve
+        half's one fetch."""
+        t = time.perf_counter()
+        with sync_watch() as syncs:
+            path = super().save_round_state(directory, epoch, state=state, lr_steps=lr_steps)
+        g, p, o = state if state is not None else (self.global_t, self.personal_t, self.stacked_o)
+        self.saves.append({"round": epoch, "save_ms": (time.perf_counter() - t) * 1e3,
+                           "syncs": syncs, "file_bytes": os.path.getsize(
+                               os.path.join(path, TREE_FILE)),
+                           "tensor_bytes": sum(v.numel() * v.element_size()
+                                               for d in (g, p, o) for v in d.values())})
+        return path
+
+    def load_round_state(self, path):
+        t = time.perf_counter()
+        epoch = super().load_round_state(path)
+        torch.cuda.synchronize()
+        self.loads.append({"path": path, "load_ms": (time.perf_counter() - t) * 1e3,
+                           "state": {k: {n: v.clone() for n, v in d.items()} for k, d in (
+                               ("global_t", self.global_t), ("personal_t", self.personal_t),
+                               ("stacked_o", self.stacked_o))}})
+        return epoch
 
     def _timed(self, fn, *args):
         t = time.perf_counter()
@@ -936,7 +986,7 @@ class CheckedRunner(ParallelRoundRunner):
 
 
 def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None,
-            parallel=False, opts=(), host_eval=False):
+            parallel=False, opts=(), host_eval=False, fallback=False):
     """``fairfedmed_tpu_torch.federated_main.main`` with the flags of a
     launcher script (the real config files, batch 32 / 100), except
     ``--root`` and ``--output-dir`` (under ``build/``), ``--round``, no
@@ -949,7 +999,9 @@ def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None
     trained and evaluated, and the runner's own step counts must equal
     them.  With ``host_eval`` a parallel run may evaluate a client on the
     sequential path, where the runner refused its device eval cache (the
-    host transforms' datasets).
+    host transforms' datasets).  With ``fallback`` the argv keeps
+    ``--parallel_clients`` for a trainer the runner does not take: the run
+    must print the JAX CLI's notice and build no runner.
     ``on_build(trainer)`` runs once the CLI has built its trainer.  Returns
     what the path's checks read."""
     from fairfedmed_tpu_torch import federated_main as fm
@@ -966,7 +1018,7 @@ def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None
             argv[i + 1] = os.path.join(REPO, argv[i + 1])
     argv += list(opts)
     args = fm.build_arg_parser().parse_args(argv)
-    if parallel != ("--parallel_clients" in argv):
+    if (parallel or fallback) != ("--parallel_clients" in argv):
         raise AssertionError(f"the launcher's parallel switch: {argv}")
 
     steps, epochs, holder = [], [], {}
@@ -1033,6 +1085,10 @@ def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None
         log = f.read()
     evaluated = [int(c) for c in re.findall(r"Evaluate on the client(\d+)_test set", log)]
     runner = CheckedRunner.last
+    if fallback and (runner is not None or "parallel_clients not supported for this "
+                     "model/trainer; using sequential rounds" not in log):
+        raise AssertionError("--parallel_clients did not fall back to the sequential rounds "
+                             "with the JAX CLI's notice")
     if parallel:
         if runner is None:
             raise AssertionError("the CLI built no client-parallel runner")
@@ -1089,10 +1145,14 @@ def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None
     # gradient: block 1 when only adapters train, block 0 when the slice
     # projector (or a trainable ln_pre) sits before it, none when nothing in
     # the image tower trains (PromptFL, GLP_OT with a frozen image encoder)
-    clip = trainer.bundle.clip_cfg
-    t = clip.transformer_layers
+    bundle = getattr(trainer, "bundle", None)  # None: the Baseline trainer's Dassl backbone
+    clip = bundle.clip_cfg if bundle is not None else None
+    t = clip.transformer_layers if bundle is not None else 0
     trainable = trainer.trainable
-    if trainer.backbone_type == "vit":
+    if bundle is None:  # plain attention in the ViT, none elsewhere: no kernel launch
+        v = v_bwd = 0
+        width, layers = [trainer.fdim], [trainer.cfg.MODEL.BACKBONE.NAME or "cnn3"]
+    elif trainer.backbone_type == "vit":
         v = clip.vision_layers
         if getattr(trainer, "is_3d_input", False) or "visual_ln_pre" in trainable:
             v_bwd = v
@@ -1116,10 +1176,12 @@ def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None
         return statistics.median(xs) if xs else None
 
     res = {"entry": "fairfedmed_tpu_torch.federated_main.main", "argv": argv,
-           "model": trainer.cfg.MODEL.BACKBONE.NAME, "backbone_type": trainer.backbone_type,
+           "model": trainer.cfg.MODEL.BACKBONE.NAME,
+           "backbone_type": getattr(trainer, "backbone_type", "dassl"),
            "modality": trainer.cfg.DATASET.MODALITY_TYPE, "width": width, "layers": layers,
            "aggregation": args.model, "trainer": args.trainer,
-           "prec": trainer.cfg.TRAINER[getattr(trainer, "prec_node", "GLP_OT")].PREC,
+           "prec": (trainer.cfg.TRAINER[getattr(trainer, "prec_node", "GLP_OT")].PREC
+                    if bundle is not None else "fp32"),
            "device": str(trainer.device), "main_s": main_s,
            "round_s": [cum[0]] + [b - a for a, b in zip(cum, cum[1:])],
            "trained_clients": trained, "evaluated_clients": evaluated,
@@ -2078,11 +2140,391 @@ def office_path(dev):
     return res["launches"]
 
 
+# --------------------------------------------------------------------------- #
+# phase 11: round checkpoints, the Baseline trainer, the standalone CLI
+# --------------------------------------------------------------------------- #
+
+RESUME_CKPT = os.path.join(REPO, "build", "chip_smoke_round_ckpt")
+CKPT_KEYS = ("global_t", "personal_t", "stacked_o")
+
+
+def _same_state(tree, state) -> bool:
+    """``tree`` (a round checkpoint, on the host) equals ``state`` (the
+    runner's tensors) bit for bit: the same keys, dtypes and values."""
+    for part in CKPT_KEYS:
+        if set(tree[part]) != set(state[part]):
+            return False
+        for k, v in state[part].items():
+            if tree[part][k].dtype != v.dtype or not torch.equal(tree[part][k], v.cpu()):
+                return False
+    return True
+
+
+def _check_resumed_run(res, runner, epochs, clients_per_round):
+    """A resumed client-parallel run: it ran ``epochs`` and no other, each
+    training ``clients_per_round`` clients, finite metrics, one metrics
+    fetch per round and one checkpoint fetch per due round (every round at
+    CHECKPOINT_FREQ 1), no device wait in a dispatch half, the expected
+    launches."""
+    rounds = [r["round"] for r in runner.resolved]
+    if rounds != list(epochs) or [len(r["clients"]) for r in runner.resolved] != \
+            [clients_per_round] * len(epochs):
+        raise AssertionError(f"the resumed run ran rounds {rounds} with clients "
+                             f"{[r['clients'] for r in runner.resolved]}, expected {list(epochs)}")
+    if len(res["acc"]) != len(epochs) or not np.isfinite(res["acc"] + res["auc"]).all() \
+            or not all(np.isfinite(s["loss"]) for s in res["steps"]):
+        raise AssertionError(f"non-finite or missing metrics: {res['acc']} {res['auc']}")
+    if res["fetches"] != len(epochs) or any(len(r["resolve_syncs"]) != 1 for r in res["rounds"]) \
+            or any(r["dispatch_syncs"] for r in res["rounds"][1:]):
+        raise AssertionError(f"fetches {res['fetches']}, rounds {res['rounds']}")
+    if res["launches"] != res["expected_launches"]:
+        raise AssertionError(f"kernel launches {res['launches']} != expected "
+                             f"{res['expected_launches']}")
+
+
+def _check_saves(runner, epochs):
+    """One checkpoint per round (CHECKPOINT_FREQ 1), each one fetch."""
+    if [s["round"] for s in runner.saves] != list(epochs) or any(
+            len(s["syncs"]) != 1 for s in runner.saves):
+        raise AssertionError(f"round checkpoints {[(s['round'], s['syncs']) for s in runner.saves]}"
+                             f", expected one fetch for each of rounds {list(epochs)}")
+
+
+def resume_path(dev):
+    """Round checkpoints and ``--resume`` on the client-parallel rounds, with
+    the flags of scripts/fairfedlora_fairfedmed.sh and its
+    ``--parallel_clients`` (ViT-B/16 FairLoRA rank 12 / alpha 2, 3 users,
+    frac 0.8) on cli_path's SLO fixture, ``TRAIN.CHECKPOINT_FREQ 1``:
+
+    1. ``FAIRFEDMED_ROUND_CKPT`` set, ``--round 2``: only ``step_1`` is
+       left; it holds, bit for bit, the runner's own state after round 1 and
+       its LR step counter (5 clients x 2 steps per local epoch);
+    2. ``--resume`` alone, same directory, ``--round 4``: "continuing at
+       epoch 2", the restored state equal to step_1 bit for bit, exactly
+       rounds 2 and 3, only ``step_3`` left;
+    3. ``--resume`` again with ``--attribute_type race`` (the launcher's is
+       language): "ignoring round checkpoint", rounds 0 and 1.
+    Each round makes its one metrics fetch and each checkpoint its own one;
+    the save and load times and the bytes per checkpoint are printed."""
+    shutil.rmtree(RESUME_CKPT, ignore_errors=True)
+    opts = ("TRAIN.CHECKPOINT_FREQ", "1")
+    total = {"attention_fwd": 0, "attention_bwd": 0}
+    runs = []
+    os.environ[ROUND_CKPT_ENV] = RESUME_CKPT
+    try:
+        first, runner, _, trainer = _parallel_run("resume_first", SCRIPT, SLO_ROOT, 2, dev,
+                                                  opts=opts)
+    finally:
+        os.environ.pop(ROUND_CKPT_ENV, None)
+    check_cli_run(first, 2)
+    _check_saves(runner, (0, 1))
+    left = sorted(os.listdir(RESUME_CKPT))
+    tree = load_pytree(os.path.join(RESUME_CKPT, "step_1"))
+    live = dict(zip(CKPT_KEYS, (runner.global_t, runner.personal_t, runner.stacked_o)))
+    lr_steps = (int(tree["lr_steps"]), int(trainer._lr_steps))
+    first.update(checkpoints_left=left, checkpoint_equals_state=_same_state(tree, live),
+                 checkpoint_lr_steps=lr_steps, saves=[{k: v for k, v in sv.items()}
+                                                     for sv in runner.saves])
+    emit(first)
+    if left != ["step_1"] or not first["checkpoint_equals_state"] or lr_steps != (10, 10) \
+            or int(tree["epoch"]) != 1:
+        raise AssertionError(f"round checkpoint: {left}, equal "
+                             f"{first['checkpoint_equals_state']}, lr steps {lr_steps}")
+    runs.append(("resume_first", first, runner))
+    del live, trainer
+
+    second, runner, _, _ = _parallel_run("resume_second", SCRIPT, SLO_ROOT, 4, dev,
+                                         (("--resume", RESUME_CKPT),), opts)
+    log = open(os.path.join(REPO, "build", "chip_smoke_resume_second", "log.txt")).read()
+    restored = len(runner.loads) == 1 and _same_state(tree, runner.loads[0]["state"])
+    second.update(checkpoints_left=sorted(os.listdir(RESUME_CKPT)), restored_bitwise=restored,
+                  saves=runner.saves, loads=[{"load_ms": ld["load_ms"]} for ld in runner.loads])
+    emit(second)
+    _check_resumed_run(second, runner, (2, 3), int(0.8 * CLI_SITES))
+    _check_saves(runner, (2, 3))
+    if f"resumed round state from {RESUME_CKPT}/step_1 (continuing at epoch 2)" not in log \
+            or not restored or second["checkpoints_left"] != ["step_3"]:
+        raise AssertionError(f"resume: restored {restored}, left {second['checkpoints_left']}")
+    runs.append(("resume_second", second, runner))
+
+    third, runner, _, _ = _parallel_run("resume_foreign", SCRIPT, SLO_ROOT, 2, dev,
+                                        (("--resume", RESUME_CKPT), ("--attribute_type", "race")),
+                                        opts)
+    log = open(os.path.join(REPO, "build", "chip_smoke_resume_foreign", "log.txt")).read()
+    third.update(saves=runner.saves, loads=len(runner.loads))
+    emit(third)
+    check_cli_run(third, 2)
+    _check_saves(runner, (0, 1))
+    if f"ignoring round checkpoint {RESUME_CKPT}/step_3" not in log or runner.loads:
+        raise AssertionError("a foreign run shape's checkpoint was not ignored")
+    runs.append(("resume_foreign", third, runner))
+
+    saves = [sv for _, _, r in runs for sv in r.saves]
+    res = {"phase": "resume_path",
+           "save_ms": [sv["save_ms"] for sv in saves],
+           "load_ms": [ld["load_ms"] for _, _, r in runs for ld in r.loads],
+           "checkpoint_file_bytes": sorted({sv["file_bytes"] for sv in saves}),
+           "checkpoint_tensor_bytes": sorted({sv["tensor_bytes"] for sv in saves}),
+           "fetches_per_round": {name: [1 + sum(sv["round"] == r["round"] for sv in rn.saves)
+                                        for r in rn.resolved] for name, _, rn in runs},
+           "round_s": {name: r["round_s"] for name, r, _ in runs},
+           "peak_mem_gib": max(r["peak_mem_gib"] for _, r, _ in runs)}
+    for _, r, _ in runs:
+        for k in total:
+            total[k] += r["launches"][k]
+    res["launches"] = total
+    emit(res)
+    return total
+
+
+BASELINE_TOL = {"logits": 1e-4, "loss": 1e-5, "state": 1e-6, "running_stats_rel": 1e-4}
+
+
+def baseline_reference(dev):
+    """The Baseline trainer built on the CPU and on the GPU from one seed
+    (cnn3, and ResNet-18 with the mlp head), fp32: the logits, one training
+    step's loss and the state after it agree (the running statistics to
+    1e-4 of their largest value), on CIFAR-shaped uint8 NHWC batches of 8 at
+    64x64."""
+    rows = []
+    for backbone, head in (("cnn3", ()), ("resnet18", (128,))):
+        cfg = fairlora_cfg("ViT-B/16", 64, "fp32", trainer="Baseline")
+        cfg.MODEL.BACKBONE.NAME = backbone
+        cfg.MODEL.HEAD.NAME = "mlp" if head else ""
+        cfg.MODEL.HEAD.HIDDEN_LAYERS = head
+        rng = np.random.default_rng(3)
+        batch = {"img": rng.integers(0, 256, (8, 64, 64, 3), dtype=np.uint8),
+                 "label": rng.integers(0, 10, 8).astype(np.int64)}
+        dm = types.SimpleNamespace(fed_train_loader_x_dict={0: [batch]},
+                                   fed_test_loader_x_dict={0: [dict(batch, n_valid=8)]},
+                                   num_classes=10, lab2cname={i: str(i) for i in range(10)})
+        trainers = {d: build_trainer(cfg, dm, device=d) for d in ("cpu", dev)}
+        logits = {d: tr.model_inference(torch.as_tensor(batch["img"])).cpu()
+                  for d, tr in trainers.items()}
+        steps = {}
+        for d, tr in trainers.items():
+            tr.batch_idx, tr.num_batches = 0, 2
+            steps[d] = (tr.forward_backward(batch), tr.state_dict())
+        state_err, stats_ok = 0.0, True
+        for k, want in steps["cpu"][1].items():
+            err = float(np.abs(want - steps[dev][1][k]).max())
+            if k.startswith("stats."):
+                stats_ok &= err <= BASELINE_TOL["running_stats_rel"] * max(
+                    1.0, float(np.abs(want).max()))
+            else:
+                state_err = max(state_err, err)
+        row = {"backbone": backbone, "head": list(head), "prec": "fp32",
+               "logits_max_abs_err": (logits["cpu"] - logits[dev]).abs().max().item(),
+               "loss_abs_err": abs(steps["cpu"][0]["loss"] - steps[dev][0]["loss"]),
+               "state_max_abs_err": state_err, "running_stats_within_tol": stats_ok}
+        rows.append(row)
+        if not (row["logits_max_abs_err"] <= BASELINE_TOL["logits"]
+                and row["loss_abs_err"] <= BASELINE_TOL["loss"]
+                and state_err <= BASELINE_TOL["state"] and stats_ok):
+            raise AssertionError(f"the GPU Baseline trainer disagrees with the CPU one: {row}")
+    return {"phase": "baseline_reference", "tol": BASELINE_TOL, "rows": rows}
+
+
+def _check_baseline_finals(finals, backbone):
+    """Every client's final state holds the classifier and, on a ResNet, its
+    BatchNorm statistics (``stats.*``), finite and moved from their init."""
+    for idx, z in finals.items():
+        stats = [k for k in z if k.startswith("stats.")]
+        moved = all(np.abs(z[k] - (1.0 if k.endswith(".var") else 0.0)).max() > 0 for k in stats)
+        if "classifier.weight" not in z or (backbone.startswith("resnet") and not stats) \
+                or not moved:
+            raise AssertionError(f"client {idx}: Baseline state {sorted(z)[:5]}...")
+
+
+def baseline_path(dev):
+    """``--model fedavg --trainer Baseline`` through the CLI, 1 round each,
+    sequential: ``--backbone resnet50`` and ``--backbone vit_base_patch16``
+    with the flags of scripts/fairfedlora_fairfedmed.sh on cli_path's SLO
+    fixture at 224 (the supervised baseline on the FairLoRA users' data;
+    ``--frac 1.0``, so all 3 sites train); ``--backbone resnet18`` with the
+    mlp head (``MODEL.HEAD.HIDDEN_LAYERS (128,)``) on cifar_path's CIFAR-10
+    fixture with its 10 users, and cnn3 there with ``--parallel_clients``,
+    which prints the JAX CLI's notice and runs sequentially.  fp32
+    throughout; the Dassl ViT computes plain attention, so no kernel
+    launches.  First the GPU trainer against the CPU trainer at a small
+    size."""
+    emit(baseline_reference(dev))
+    slo = (("--model", "fedavg"), ("--trainer", "Baseline"), ("--frac", "1.0"))
+    cifar = (("--num_users", "10"), ("--beta", "0.1"),
+             ("--config-file", "configs/trainers/GLP_OT/vit_b16.yaml"),
+             ("--dataset-config-file", "configs/datasets/cifar10.yaml"),
+             ("--partition", "noniid-labeldir"), ("--trainer", "Baseline"))
+    runs = (("baseline_resnet50", SCRIPT, SLO_ROOT, slo + (("--backbone", "resnet50"),), (),
+             False, CLI_SITES),
+            ("baseline_vit", SCRIPT, SLO_ROOT, slo + (("--backbone", "vit_base_patch16"),), (),
+             False, CLI_SITES),
+            ("baseline_resnet18_cifar", PROMPTFL_SCRIPT, CIFAR_ROOT,
+             cifar + (("--backbone", "resnet18"),),
+             ("MODEL.HEAD.NAME", "mlp", "MODEL.HEAD.HIDDEN_LAYERS", "(128,)"), False, 10),
+            ("baseline_cnn3_parallel", PROMPTFL_SCRIPT, CIFAR_ROOT,
+             cifar + (("--backbone", "cnn3"), ("--parallel_clients",)), (), True, 10))
+    total = {"attention_fwd": 0, "attention_bwd": 0}
+    for phase, script, root, overrides, opts, fallback, n_users in runs:
+        res, finals, trainer = run_cli(script, root, os.path.join(REPO, "build",
+                                                                  f"chip_smoke_{phase}"),
+                                       1, dev, overrides, opts=opts, fallback=fallback)
+        res = {"phase": phase, "changed_flags": [list(f) for f in overrides], **res}
+        emit(res)
+        check_cli_run(res, 1, (n_users,), with_auc=False)
+        _check_baseline_finals(finals, trainer.cfg.MODEL.BACKBONE.NAME)
+        if res["launches"] != {"attention_fwd": 0, "attention_bwd": 0} or res["prec"] != "fp32":
+            raise AssertionError(f"{phase}: {res['launches']} {res['prec']}")
+        _summary(phase, res)
+        for k in total:
+            total[k] += res["launches"][k]
+        del res, finals, trainer
+        # every client's full backbone per epoch (save_model): gigabytes on CIFAR
+        shutil.rmtree(os.path.join(REPO, "build", f"chip_smoke_{phase}"), ignore_errors=True)
+    emit({"phase": "baseline_path", "launches": total})
+    return total
+
+
+def _results_equal(a, b, tol=1e-6) -> bool:
+    """Two evaluator result lists (scalars, arrays, per-group dicts) equal
+    to ``tol``."""
+    if isinstance(b, dict):
+        return set(a) == set(b) and all(_results_equal(a[k], b[k], tol) for k in b)
+    if isinstance(b, (list, tuple)) and any(isinstance(x, (dict, list, tuple, np.ndarray))
+                                            for x in b):
+        return len(a) == len(b) and all(_results_equal(x, y, tol) for x, y in zip(a, b))
+    return bool(np.all(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)) <= tol))
+
+
+def run_train_cli(phase, argv, dev):
+    """``fairfedmed_tpu_torch.tools.train.main`` (``python -m
+    fairfedmed_tpu_torch.tools.train``) on ``argv``, the kernel counters
+    zeroed just before and read just after; the expected launches from the
+    training batches the trainer ran and the test batches of its one site."""
+    from fairfedmed_tpu_torch.tools import train as st
+
+    out_dir = argv[argv.index("--output-dir") + 1]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    holder, steps = {}, []
+    build = st.build_trainer
+
+    def recording_build(cfg, dm=None, device=None):
+        tr = build(cfg, dm, device=device)
+        holder["trainer"] = tr
+        fb = tr.forward_backward
+
+        def timed(b):
+            t = time.perf_counter()
+            out = fb(b)
+            steps.append({"loss": out["loss"], "ms": (time.perf_counter() - t) * 1e3,
+                          "epoch": tr.epoch})
+            return out
+
+        tr.forward_backward = timed
+        return tr
+
+    st.build_trainer = recording_build
+    A.attention_fwd.launches = 0
+    A.attention_bwd.launches = 0
+    saved = sys.stdout
+    t0 = time.perf_counter()
+    try:
+        with open(out_dir + "_console.txt", "w") as console:
+            sys.stdout = console
+            try:
+                out = st.main(st.build_arg_parser().parse_args(argv))
+            finally:
+                tee, sys.stdout = sys.stdout, saved
+                if tee is not console:
+                    tee.close()
+    finally:
+        st.build_trainer = build
+    torch.cuda.synchronize()
+    launches = {"attention_fwd": A.attention_fwd.launches,
+                "attention_bwd": A.attention_bwd.launches}
+    tr = holder["trainer"]
+    clip = tr.bundle.clip_cfg
+    v, t = clip.vision_layers, clip.transformer_layers
+    n_eval = len(tr.fed_test_loader_x_dict[0]) if "test" in out else 0
+    expected = {"attention_fwd": (len(steps) + n_eval) * (v + t),
+                "attention_bwd": len(steps) * (v - 1 + t)}  # LoRA only: from block 1
+    with open(os.path.join(out_dir, "log.txt")) as f:
+        log = f.read()
+    res = {"phase": phase, "entry": "fairfedmed_tpu_torch.tools.train.main", "argv": argv,
+           "s": time.perf_counter() - t0, "train_batches": len(steps),
+           "epochs_run": sorted({s["epoch"] for s in steps}), "eval_batches": n_eval,
+           "step_ms_median": statistics.median(s["ms"] for s in steps) if steps else None,
+           "test": out.get("test"), "launches": launches, "expected_launches": expected}
+    if launches != expected or (steps and not all(np.isfinite(s["loss"]) for s in steps)):
+        raise AssertionError(f"{phase}: launches {launches} != {expected} or a bad loss")
+    return res, log, tr
+
+
+def train_cli_path(dev):
+    """``python -m fairfedmed_tpu_torch.tools.train``, in process, on one site
+    of cli_path's SLO fixture with the GLP_OT_SVLoRA trainer at ViT-B/16
+    (configs/trainers/GLP_OT/vit_b16_oph.yaml with the FairLoRA launcher's
+    settings: 4 context tokens, 2 prompts, rank 12 / alpha 2, OT None,
+    attribute language; batch 32 / 100, bf16, 2 local epochs):
+    train -> ``save_checkpoint`` -> test; ``--eval-only --model-dir`` on
+    that checkpoint gives the same test results; ``--resume`` restarts at the
+    saved epoch: with ``OPTIM.MAX_EPOCH 2`` it trains nothing and tests the
+    same, with 3 it trains the third epoch only."""
+    base = os.path.join(REPO, "build", "chip_smoke_train_cli")
+    ckpt = os.path.join(base + "_train", "checkpoints")
+    flags = ["--root", SLO_ROOT, "--seed", "1", "--trainer", "GLP_OT_SVLoRA",
+             "--dataset-config-file", os.path.join(REPO, "configs/datasets/fairfedmed.yaml"),
+             "--config-file", os.path.join(REPO, "configs/trainers/GLP_OT/vit_b16_oph.yaml")]
+
+    def opts(epochs):
+        return ["TRAINER.GLP_OT.N_CTX", "4", "TRAINER.GLP_OT.N", "2", "TRAINER.GLP_OT.OT",
+                "'None'", "TRAINER.GLP_OT_LORA.UNFREEZE_IMAGE_ENCODER", "True",
+                "TRAINER.GLP_OT_LORA.RANK", "12", "TRAINER.GLP_OT_LORA.ALPHA", "2.0",
+                "TRAINER.GLP_OT_LORA.TYPE", "FairLoRA", "DATASET.ATTRIBUTE_TYPE", "language",
+                "OPTIM.LR", "0.001", "DATALOADER.TRAIN_X.BATCH_SIZE", "32",
+                "DATALOADER.TEST.BATCH_SIZE", "100", "OPTIM.MAX_EPOCH", str(epochs)]
+
+    runs = {}
+    trained, _, tr = run_train_cli("train_cli_train", flags + ["--output-dir", base + "_train"]
+                                   + opts(2), dev)
+    n_batches = len(tr.fed_train_loader_x_dict[0])
+    runs["train"] = trained
+    ok = (trained["epochs_run"] == [0, 1] and trained["train_batches"] == 2 * n_batches
+          and os.path.exists(os.path.join(ckpt, "model.pth.tar-1"))
+          and open(os.path.join(ckpt, "checkpoint")).read() == "model.pth.tar-1")
+    evald, _, _ = run_train_cli("train_cli_eval_only",
+                                flags + ["--output-dir", base + "_eval", "--eval-only",
+                                         "--model-dir", ckpt] + opts(2), dev)
+    runs["eval_only"] = evald
+    same, log, _ = run_train_cli("train_cli_resume_done",
+                                 flags + ["--output-dir", base + "_resume2", "--resume", ckpt]
+                                 + opts(2), dev)
+    runs["resume_at_saved_epoch"] = same
+    ok &= "Resumed from model.pth.tar-1 (epoch=2)" in log and same["train_batches"] == 0
+    more, log, _ = run_train_cli("train_cli_resume_more",
+                                 flags + ["--output-dir", base + "_resume3", "--resume", ckpt]
+                                 + opts(3), dev)
+    runs["resume_one_more_epoch"] = more
+    ok &= (more["epochs_run"] == [2] and more["train_batches"] == n_batches
+           and f"epoch [3/3][{n_batches}/{n_batches}]" in log and "epoch [1/3]" not in log)
+    equal = {"eval_only": _results_equal(evald["test"], trained["test"]),
+             "resume_at_saved_epoch": _results_equal(same["test"], trained["test"])}
+    total = {k: sum(r["launches"][k] for r in runs.values()) for k in runs["train"]["launches"]}
+    res = {"phase": "train_cli_path", "runs": {k: {kk: vv for kk, vv in r.items() if kk != "test"}
+                                               for k, r in runs.items()},
+           "test_acc": {k: r["test"][0] for k, r in runs.items()},
+           "test_equal_to_trained": equal, "launches": total}
+    emit(res)
+    if not ok or not all(equal.values()) or not np.isfinite(more["test"][0]):
+        raise AssertionError(f"train_cli_path: ok {ok}, equal {equal}")
+    return total
+
+
 PATHS = ("main_path", "cli_path", "oct_path", "rn50_path", "rn50_oct_path", "ot_path",
          "promptfl_path", "fedotp_path", "clip_path", "fedprox_path", "parallel_cli_path",
          "parallel_oct_path", "parallel_rn50_path", "parallel_branches", "parallel_equiv",
          "chexmimic_path", "parallel_chexmimic", "cifar_path", "caltech_path",
-         "caltech_vit_parallel", "office_path")
+         "caltech_vit_parallel", "office_path", "resume_path", "baseline_path",
+         "train_cli_path")
 
 
 def kernels_line(rows, launches):
@@ -2125,9 +2567,28 @@ def kernels_line(rows, launches):
     return {"kernels": out}
 
 
-def main():
+def _ensure_fixtures(names):
+    """The fixtures the named phases read but an unselected phase writes."""
+    if any(n in names for n in ("resume_path", "baseline_path", "train_cli_path")) \
+            and "cli_path" not in names:
+        _write_fixture(SLO_ROOT)
+    if "baseline_path" in names and "cifar_path" not in names:
+        shutil.rmtree(CIFAR_ROOT, ignore_errors=True)
+        write_cifar_fixture(CIFAR_ROOT, "cifar10")
+
+
+def main(argv=()):
+    """With no arguments every phase runs and the contract's lines are
+    printed.  Phase names as arguments run only those phases (after the
+    kernel checks), to debug them: then no ``kernels`` line and no final
+    ``ok`` line."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    names = tuple(argv) or PATHS
+    unknown = [n for n in names if n not in PATHS]
+    if unknown:
+        print(f"chip_smoke: unknown phases {unknown}; phases: {PATHS}", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     dev = "cuda"
@@ -2146,10 +2607,15 @@ def main():
     emit({"phase": "kernel_checks", "rows": rows})
     emit(small_reference(dev))
     launches = {}
-    for name in PATHS:
+    if names != PATHS:
+        _ensure_fixtures(names)
+    for name in names:
         t0 = time.perf_counter()
         launches[name] = globals()[name](dev)
         emit({"phase": f"{name}_done", "s": time.perf_counter() - t0})
+    if names != PATHS:
+        emit({"phase": "total", "s": time.perf_counter() - t_start, "phases": list(names)})
+        return 0
     emit(kernels_line(rows, launches))
     emit({"phase": "total", "s": time.perf_counter() - t_start})
     print(nvidia_smi_line())
@@ -2159,4 +2625,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -24,9 +24,18 @@ loop's state_dict harvest, deep copies and host aggregation per client:
   ``resolve_round`` makes the round's one blocking fetch, the train
   metrics and the round's evaluation logits together.
 
+With ``--resume DIR`` or ``FAIRFEDMED_ROUND_CKPT=<dir>`` (which wins) a
+due round saves the whole federated state (global, stacked per-client
+trainables and optimizer states, the LR step counter) as one checkpoint
+``step_<epoch>`` of ``train/checkpoint.py`` and prunes this run's older
+steps; a relaunch of the same run shape continues after the saved round
+(``maybe_resume``).  Under deferral a round resolves after the next one has
+been enqueued, so the round snapshots its own state into the handle: the
+runner rebinds its tensors every round and never writes one in place.
+
 The JAX package runs a round as one SPMD program over a device mesh; on one
 device it trains its clients one after another, as this runner does.  Mesh
-rounds over several cards and round-state checkpoints are not ported.
+rounds over several cards are not ported.
 
 Intended differences from the sequential loop, as in the JAX package: each
 client owns its optimizer state and keeps it across rounds (the sequential
@@ -39,17 +48,25 @@ samples than the batch trains one batch padded by cycling its samples.
 from __future__ import annotations
 
 import os
+import shutil
+import zlib
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..train.checkpoint import check_like, latest_step, load_pytree, save_pytree
 from .aggregate import _freqs
 from .parallel import (apply_shared_half_s, client_weighted_mean, ema_blend, personalize,
                        stack_clients)
 
 CACHE_BYTES_ENV = "FAIRFEDMED_DEVICE_CACHE_BYTES"
+ROUND_CKPT_ENV = "FAIRFEDMED_ROUND_CKPT"
 MODES = ("ema_personal", "fedavg", "prompt_personal", "local_personal", "fedavg_personal")
+
+
+class ForeignCheckpoint(ValueError):
+    """A round checkpoint whose fingerprint is another run shape's."""
 
 
 def _pad_rows(arr: np.ndarray, n: int) -> np.ndarray:
@@ -98,6 +115,7 @@ class ParallelRoundRunner:
         self._cached_bytes = 0
         self._pending_eval = None
         self.fetches = 0  # blocking device-to-host fetches made by resolve_round
+        self._saved_steps = set()  # the step_N checkpoints this run wrote (or resumed)
         self._attr_col = None
         if not getattr(trainer, "disable_attr", True):
             self._attr_col = list(cfg.DATASET.ATTRIBUTES).index(cfg.DATASET.ATTRIBUTE_TYPE)
@@ -392,16 +410,22 @@ class ParallelRoundRunner:
             pending = self._eval_dispatch([int(i) for i in eval_users])
             if pending is not None:
                 pending["epoch"] = epoch
-        handle = {"epoch": epoch, "idxs_users": idxs_users, "lrs": lrs, "n_steps": n_steps,
-                  "metrics": metrics, "pending_eval": pending}
+        # round r's own state for its checkpoint: by the time a deferred
+        # round resolves, self.* hold round r+1's tensors (new ones: nothing
+        # here writes a state tensor in place)
+        handle = {"epoch": epoch, "max_epoch": max_epoch, "idxs_users": idxs_users, "lrs": lrs,
+                  "n_steps": n_steps, "metrics": metrics, "pending_eval": pending,
+                  "state": (self.global_t, self.personal_t, self.stacked_o),
+                  "lr_steps": int(trainer._lr_steps)}
         if deferred:
             return handle
         return self.resolve_round(handle)
 
     def resolve_round(self, handle):
         """The blocking half of a round: ONE fetch of the train metrics and
-        the enqueued evaluation logits together, then the per-client lines.
-        The fetched evaluation waits for :meth:`parallel_eval`."""
+        the enqueued evaluation logits together, then the per-client lines,
+        then the round checkpoint when one is due (its own one fetch).  The
+        fetched evaluation waits for :meth:`parallel_eval`."""
         pend = handle["pending_eval"]
         if pend is not None:
             ms, pend["logits_host"] = self._fetch(handle["metrics"], pend["logits"])
@@ -413,6 +437,17 @@ class ParallelRoundRunner:
             print(f"client {idx}: steps {int(handle['n_steps'][j])} "
                   f"loss {ms[j, :, 0].sum() / nv:.4f} "
                   f"acc {ms[j, :, 2].sum() / nv:.4f} lr {handle['lrs'][j]:.6e}")
+        # the config default CHECKPOINT_FREQ 0 means every round: setting a
+        # checkpoint directory asks for preemption recovery
+        epoch, max_epoch = handle["epoch"], handle["max_epoch"]
+        ckpt_dir = self._round_ckpt_dir()
+        if ckpt_dir:
+            freq = max(int(self.cfg.TRAIN.CHECKPOINT_FREQ), 1)
+            if epoch + 1 >= max_epoch or (epoch + 1) % freq == 0:
+                path = self.save_round_state(ckpt_dir, epoch, state=handle["state"],
+                                             lr_steps=handle["lr_steps"])
+                print(f"round state -> {path}")
+                self._prune_round_ckpts(ckpt_dir, keep=epoch)
         return ms
 
     def _aggregate(self, mode, trained_t, weights, group_w, beta_decay, idx, update_idx, keep):
@@ -565,6 +600,100 @@ class ParallelRoundRunner:
                     trainer.write_scalar(f"test/{k}/{idx}", v, current_epoch)
             results.append(list(res.values()))
         return results
+
+    # ------------------------------------------------------------- round checkpoints
+    def _run_fingerprint(self) -> int:
+        """The run shape a round checkpoint belongs to (JAX
+        parallel_driver.py:977-993, the same CRC of the same key): users,
+        model, trainer, backbone, dataset, modality and attribute."""
+        key = "|".join([str(self.num_users), str(self.args.model), str(self.cfg.TRAINER.NAME),
+                        str(self.cfg.MODEL.BACKBONE.NAME), str(self.cfg.DATASET.NAME),
+                        str(self.cfg.DATASET.MODALITY_TYPE),
+                        str(getattr(self.args, "attribute_type", ""))])
+        return zlib.crc32(key.encode())
+
+    def _run_fingerprint_legacy(self) -> int:
+        """The fingerprint of checkpoints written before the dataset fields
+        joined it (users, model, trainer, backbone); still accepted, with a
+        note."""
+        key = "|".join([str(self.num_users), str(self.args.model), str(self.cfg.TRAINER.NAME),
+                        str(self.cfg.MODEL.BACKBONE.NAME)])
+        return zlib.crc32(key.encode())
+
+    def save_round_state(self, directory: str, epoch: int, state=None, lr_steps=None) -> str:
+        """Write the federated state (global, stacked per-client trainables
+        and optimizer states, the LR step counter) as ``step_<epoch>``, in
+        one device-to-host fetch.  ``state`` / ``lr_steps`` default to the
+        live ones; a deferred round passes its handle's snapshot."""
+        g, p, o = state if state is not None else (self.global_t, self.personal_t,
+                                                   self.stacked_o)
+        tree = {"global_t": g, "personal_t": p, "stacked_o": o,
+                "lr_steps": int(self.trainer._lr_steps if lr_steps is None else lr_steps),
+                "epoch": int(epoch), "fingerprint": self._run_fingerprint()}
+        path = save_pytree(directory, tree, step=epoch)
+        self._saved_steps.add(epoch)
+        return path
+
+    def _prune_round_ckpts(self, directory: str, keep: int) -> None:
+        """Delete the step_N checkpoints this run wrote or resumed, except
+        ``keep``; another run's steps in a shared directory stay."""
+        for step in list(self._saved_steps):
+            if step != keep:
+                shutil.rmtree(os.path.join(directory, f"step_{step}"), ignore_errors=True)
+                self._saved_steps.discard(step)
+
+    def _round_ckpt_dir(self):
+        """``FAIRFEDMED_ROUND_CKPT``, else ``--resume DIR`` (cfg.RESUME), else
+        None."""
+        return os.environ.get(ROUND_CKPT_ENV) or (self.cfg.RESUME or None)
+
+    def maybe_resume(self) -> int:
+        """Restore the newest round checkpoint of the checkpoint directory and
+        return the epoch to continue from (saved epoch + 1); 0 when there is
+        none, or when it belongs to another run shape (ignored with a
+        message).  A checkpoint of this run shape that does not load raises.
+        The client sampling's RNG is not restored: a frac-sampled round
+        after a resume draws afresh, as in the JAX package."""
+        ckpt_dir = self._round_ckpt_dir()
+        if not ckpt_dir:
+            return 0
+        step = latest_step(ckpt_dir)
+        if step is None:
+            return 0
+        try:
+            epoch = self.load_round_state(os.path.join(ckpt_dir, f"step_{step}"))
+        except ForeignCheckpoint as e:
+            print(f"ignoring round checkpoint {ckpt_dir}/step_{step}: {e}")
+            return 0
+        self._saved_steps.add(step)  # pruned after the next save
+        print(f"resumed round state from {ckpt_dir}/step_{step} "
+              f"(continuing at epoch {epoch + 1})")
+        return epoch + 1
+
+    def load_round_state(self, path: str) -> int:
+        """Restore a :meth:`save_round_state` checkpoint onto the runner's
+        device; returns its epoch.  Raises :class:`ForeignCheckpoint` for
+        another run shape's fingerprint and ``ValueError`` when a checkpoint
+        of this one does not match the state's keys, shapes or dtypes."""
+        tree = load_pytree(path)
+        fp = int(tree["fingerprint"])
+        if fp != self._run_fingerprint():
+            if fp != self._run_fingerprint_legacy():
+                raise ForeignCheckpoint(
+                    "round checkpoint belongs to a different run shape (users/model/trainer/"
+                    "backbone or dataset/modality/attribute mismatch)")
+            print("note: round checkpoint has a pre-dataset-identity fingerprint "
+                  "(users/model/trainer/backbone match; dataset/modality/attribute "
+                  "unverified) — resuming")
+        template = {"global_t": self.global_t, "personal_t": self.personal_t,
+                    "stacked_o": self.stacked_o, "lr_steps": 0, "epoch": 0, "fingerprint": 0}
+        check_like(tree, template)
+        dev = self.device
+        self.global_t = {k: v.to(dev) for k, v in tree["global_t"].items()}
+        self.personal_t = {k: v.to(dev) for k, v in tree["personal_t"].items()}
+        self.stacked_o = {k: v.to(dev) for k, v in tree["stacked_o"].items()}
+        self.trainer._lr_steps = int(tree["lr_steps"])
+        return int(tree["epoch"])
 
     # ------------------------------------------------------------- export
     def install_client(self, idx: int):

@@ -14,11 +14,13 @@ trainable state and aggregates.  Every sequential branch of the JAX CLI is
 here: CLIP zero-shot evaluation, fedavg, fedprox, PromptFL/FedOTP (global
 prompt rows averaged, local rows kept per client), FedOTPLoRA (FairLoRA
 with group singular values and EMA), FedOTPLinearFT and local.  With
-``--parallel_clients`` (the launchers' default) every branch but CLIP runs
-the client-parallel rounds of ``fed/parallel_driver.py`` instead: per-client
-state on the device, one blocking fetch per round.  Their round-state
-checkpoints (``--resume``) and the ``Baseline`` trainer are not ported and
-raise.  The flags, their defaults and the printed lines are the JAX CLI's.
+``--parallel_clients`` (the launchers' default) every branch but CLIP and
+the ``Baseline`` trainer runs the client-parallel rounds of
+``fed/parallel_driver.py`` instead: per-client state on the device, one
+blocking fetch per round.  There ``--resume DIR`` (or
+``FAIRFEDMED_ROUND_CKPT=<dir>``) saves the federated state of every due
+round and a relaunch continues after the saved round.  The flags, their
+defaults and the printed lines are the JAX CLI's.
 
 ``main`` runs on ``cuda`` and raises when no GPU is present; the override
 ``USE_CUDA False`` (or ``main(args, device="cpu")``) runs the plain PyTorch
@@ -186,20 +188,10 @@ def print_args(args, cfg):
     print(f"python: {sys.version.split()[0]}  numpy: {np.__version__}")
 
 
-def _check_ported(args, cfg):
-    """Refuse up front what the port cannot run yet, naming the ROADMAP item."""
-    if args.trainer == "Baseline":
-        raise NotImplementedError("--trainer Baseline is not ported yet (ROADMAP M17: "
-                                  "models/backbones.py)")
+def _check_model(args):
     # the CLIP branch evaluates under any --model, as the JAX CLI's loop does
     if args.trainer != "CLIP" and args.model not in MODELS:
         raise NotImplementedError(f"Unknown aggregation model: {args.model}")
-    if cfg.TRAIN.PARALLEL_CLIENTS and (args.resume or os.environ.get("FAIRFEDMED_ROUND_CKPT")):
-        # the JAX runner saves and restores its round state there; silently
-        # writing nothing would advertise a no-op
-        raise NotImplementedError("round-state checkpoints (--resume / FAIRFEDMED_ROUND_CKPT) "
-                                  "of the --parallel_clients rounds are not ported yet "
-                                  "(ROADMAP M18)")
 
 
 def _pick_users(args, epoch):
@@ -237,7 +229,7 @@ def main(args, device=None):
         set_random_seed(cfg.SEED)
     setup_logger(cfg.OUTPUT_DIR)
     print_args(args, cfg)
-    _check_ported(args, cfg)
+    _check_model(args)
     device = resolve_device(device if device is not None else "cuda" if cfg.USE_CUDA else "cpu")
 
     local_weights = [[] for _ in range(args.num_users)]
@@ -289,6 +281,12 @@ def main(args, device=None):
         print(f"WARNING: --resume {args.resume} requires the "
               "--parallel_clients mesh path; no round-state checkpoint will "
               "be written or restored on the sequential loop")
+    # preemption recovery: continue after the saved round of this run shape
+    start_epoch = runner.maybe_resume() if runner is not None else 0
+    if start_epoch >= max_epoch:
+        print(f"resumed checkpoint is at epoch {start_epoch - 1} >= "
+              f"--round {max_epoch}: training already complete, only "
+              "re-saving final weights")
 
     def summarize(results, epoch, with_auc=True):
         _summarize(results, start, global_time_list, global_test_acc_list,
@@ -355,7 +353,7 @@ def main(args, device=None):
         _schedule_flush(flush, skip_eval or handle["pending_eval"] is not None)
 
     try:
-        for epoch in range(max_epoch):
+        for epoch in range(start_epoch, max_epoch):
             train_start = f"------------local train start epoch: {epoch} -------------"
             if args.trainer == "CLIP":
                 # zero-shot evaluation, one round (federated_main.py:223-267)
@@ -550,7 +548,8 @@ def main(args, device=None):
             print()
     except BaseException:
         # a failure while round r+1 is enqueued must not lose round r's
-        # computed output block: resolve the parked flush, then re-raise
+        # computed output block (nor its due round checkpoint, which its
+        # resolve writes): resolve the parked flush, then re-raise
         if pending_flush is not None:
             flush, pending_flush = pending_flush, None
             try:

@@ -33,6 +33,7 @@ from ..utils.meters import AverageMeter, MetricMeter
 from ..utils.profiling import profile_trace
 from ..utils.registry import TRAINER_REGISTRY
 from ..utils.tools import mkdir_if_missing
+from .checkpoint import host_copy
 from .clip_common import fedprox_term
 from .optim import LRSchedule, set_learning_rate
 
@@ -124,6 +125,56 @@ class TrainerBase:
         path = os.path.join(directory, f"{tag}.npz")
         np.savez(path, **self.state_dict())
         return path
+
+    def save_checkpoint(self, epoch, directory, name="model"):
+        """Full-format checkpoint ``{name}.pth.tar-{epoch}`` (torchtools.py:
+        27-82): the state dict, ``epoch + 1`` and the optimizer state, written
+        with ``torch.save`` (tensors on the CPU), and the ``checkpoint`` file
+        naming it."""
+        mkdir_if_missing(directory)
+        fpath = os.path.join(directory, f"{name}.pth.tar-{epoch}")
+        torch.save({"state_dict": {k: torch.from_numpy(np.array(v))
+                                   for k, v in self.state_dict().items()},
+                    "epoch": epoch + 1, "optimizer": self.optimizer_state_dict()}, fpath)
+        with open(os.path.join(directory, "checkpoint"), "w") as f:
+            f.write(os.path.basename(fpath))
+        return fpath
+
+    def resume_from_checkpoint(self, directory, name="model"):
+        """Load the checkpoint the ``checkpoint`` file of ``directory`` names
+        (weights and optimizer state); returns the epoch to start from, 0
+        when there is no pointer file."""
+        pointer = os.path.join(directory, "checkpoint")
+        if not os.path.exists(pointer):
+            return 0
+        with open(pointer) as f:
+            fname = f.read().strip()
+        ckpt = load_checkpoint(os.path.join(directory, fname))
+        self.load_state_dict(ckpt["state_dict"], strict=False)
+        if ckpt.get("optimizer") is not None:
+            self.load_optimizer_state_dict(ckpt["optimizer"])
+        print(f"Resumed from {fname} (epoch={ckpt['epoch']})")
+        return int(ckpt["epoch"])
+
+    def optimizer_state_dict(self):
+        """The sequential optimizer's state (``torch.optim`` format, tensors
+        on the CPU), or None for a trainer without one.  Every trainer of the
+        port steps one ``train/optim.py:Optimizer``, so this one method
+        serves them all (JAX glp_ot.py:858-865, promptfl.py:240-246)."""
+        opt = getattr(self, "optimizer", None)
+        return None if opt is None else host_copy(opt.state_dict())
+
+    def load_optimizer_state_dict(self, state):
+        opt = getattr(self, "optimizer", None)
+        if opt is not None:
+            opt.load_state_dict(state)
+
+
+def load_checkpoint(path: str) -> dict:
+    """A :meth:`TrainerBase.save_checkpoint` file, its state dict as numpy."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    ckpt["state_dict"] = {k: v.numpy() for k, v in ckpt["state_dict"].items()}
+    return ckpt
 
 
 class SimpleTrainer(TrainerBase):

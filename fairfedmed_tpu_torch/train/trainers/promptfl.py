@@ -9,8 +9,9 @@ trainers/promptfl.py:228-345 and trainers/clip.py:76-231):
   step per batch.
 * ``CLIP``: the frozen zero-shot baseline, prompts initialised from
   "a photo of a" and never trained; the CLI only evaluates it.
-* ``Baseline`` (a supervised backbone and linear head) needs the Dassl
-  backbones, which are not ported yet (ROADMAP M17): it raises.
+* ``Baseline``: a supervised Dassl backbone (``models/backbones.py``), an
+  optional MLP head and a linear classifier (SimpleNet), fp32, CE loss; the
+  BatchNorm running statistics travel in its state dict as ``stats.*``.
 
 Both CLIP towers are frozen and hold ``requires_grad=False``, so the image
 tower builds no autograd graph; the gradient reaches the context through
@@ -31,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ...core.pytree import flatten_paths
+from ...core.pytree import flatten_paths, unflatten_like
 from ...data.transforms import device_preprocess
 from ...models.clip_model import l2_normalize, pool_index, text_encode, vit_encode
 from ...models.prompt_learner import assemble_prompts, init_prompt_learner
@@ -253,9 +254,118 @@ class CLIP(_CosineCLIPTrainer):
 
 @TRAINER_REGISTRY.register()
 class Baseline(TrainerX):
-    """Supervised backbone + linear classifier (trainers/promptfl.py:348-372):
-    needs ``models/backbones.py``, not ported yet."""
+    """Supervised backbone (+ MLP head) + linear classifier, SimpleNet
+    (trainers/promptfl.py:348-372, Dassl/dassl/engine/trainer.py:48-105;
+    JAX promptfl.py:266-382), fp32 throughout.
 
-    def __init__(self, cfg, dm=None, device=None):
-        raise NotImplementedError("the Baseline trainer is not ported yet (ROADMAP M17: "
-                                  "models/backbones.py)")
+    ``MODEL.BACKBONE.NAME`` names a backbone of ``models/backbones.py``
+    (``cnn3`` when empty) and ``MODEL.HEAD.*`` an optional MLP head.  An
+    NHWC batch with 1 or 3 channels last (CIFAR's uint8 arrays) is moved to
+    NCHW and divided by 255; any other batch enters raw, as the JAX forward
+    takes it.  One optimizer step per batch at the schedule's epoch-0 LR,
+    stepped on the epoch's last batch.  The BatchNorm running statistics are
+    replaced by the forward's after each step and travel in the state dict
+    under ``stats.``.  There is no client-parallel step: ``--parallel_clients``
+    runs its rounds sequentially, with the JAX CLI's notice."""
+
+    def build_model(self):
+        from ...models.backbones import build_backbone, build_head
+
+        cfg = self.cfg
+        dev = self.device
+        self.n_cls = self.dm.num_classes
+        gen = torch.Generator().manual_seed(cfg.SEED if cfg.SEED >= 0 else 0)
+        name = cfg.MODEL.BACKBONE.NAME or "cnn3"
+        if cfg.MODEL.BACKBONE.PRETRAINED and name != "cnn3":
+            print(f"NOTE: pretrained {name} weights unavailable offline; using random init")
+        bb_init, self._bb_apply, fdim = build_backbone(name)
+        self._head_apply = None
+        trainable, stats = {}, {}
+        trainable["backbone"], stats["backbone"] = bb_init(gen, dev)
+        if cfg.MODEL.HEAD.NAME and cfg.MODEL.HEAD.HIDDEN_LAYERS:
+            head_init, self._head_apply, fdim = build_head(
+                cfg.MODEL.HEAD.NAME, fdim, cfg.MODEL.HEAD.HIDDEN_LAYERS,
+                activation=cfg.MODEL.HEAD.ACTIVATION, bn=cfg.MODEL.HEAD.BN,
+                dropout=cfg.MODEL.HEAD.DROPOUT)
+            trainable["head"], stats["head"] = head_init(gen, dev)
+        trainable["classifier"] = {
+            "weight": (torch.randn((self.n_cls, fdim), generator=gen) * 0.01).to(dev),
+            "bias": torch.zeros(self.n_cls, device=dev)}
+        self.trainable, self.stats = trainable, stats
+        self.fdim = fdim
+        self._params = list(flatten_paths(trainable).values())
+        for p in self._params:
+            p.requires_grad_(True)
+        self.lr_sched = build_lr_scheduler(cfg.OPTIM)
+        # start at the schedule's epoch-0 LR (warmup)
+        self.optimizer = build_optimizer(self._params, cfg.OPTIM, self.lr_sched.lr(0))
+
+    def _forward(self, image, train):
+        """``(logits, new_stats)``."""
+        x = image.float()
+        if x.dim() == 4 and x.shape[-1] in (1, 3):
+            x = x.permute(0, 3, 1, 2) / 255.0
+        t, stats = self.trainable, self.stats
+        f, new_bb = self._bb_apply(t["backbone"], stats["backbone"], x, train)
+        new_stats = {"backbone": new_bb}
+        if self._head_apply is not None:
+            f, new_stats["head"] = self._head_apply(t["head"], stats["head"], f, train)
+        return f @ t["classifier"]["weight"].T + t["classifier"]["bias"], new_stats
+
+    def forward_backward(self, batch):
+        image, label = self._to_device(batch["img"]), self._to_device(batch["label"])
+        logits, new_stats = self._forward(image, train=True)
+        loss = cross_entropy(logits, label)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        self.stats = new_stats
+        with torch.no_grad():  # one host fetch: [loss, acc]
+            m = torch.stack([loss.detach().float(),
+                             accuracy_from_logits(logits.detach(), label)]).cpu().numpy()
+        loss_v = float(m[0])
+        self.detect_anomaly(loss_v)
+        if (self.batch_idx + 1) == self.num_batches:
+            self.update_lr()
+            set_learning_rate(self.optimizer, self.get_current_lr())
+        return {"loss": loss_v, "acc": float(m[1])}
+
+    def parse_batch_test(self, batch):
+        return self._to_device(batch["img"]), batch["label"], batch.get("attrs"), None
+
+    @torch.no_grad()
+    def model_inference(self, inp, attr=None):
+        return self._forward(self._to_device(inp), train=False)[0]
+
+    def _named(self) -> dict:
+        out = dict(flatten_paths(self.trainable))
+        out.update({f"stats.{k}": v for k, v in flatten_paths(self.stats).items()})
+        return out
+
+    def state_dict(self):
+        """The trainable tree and the BatchNorm statistics (``stats.``-prefixed)
+        as fp32 numpy copies under dotted paths."""
+        return {k: v.detach().float().cpu().numpy().copy() for k, v in self._named().items()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state, strict=False):
+        """Copies the given parameters in place (the optimizer keeps its
+        state) and takes the given ``stats.`` entries; ``strict`` raises on a
+        missing key."""
+        named = self._named()
+        missing = [k for k in named if k not in state]
+        if strict and missing:
+            raise KeyError(f"Missing keys: {missing[:3]}...")
+        stats = flatten_paths(self.stats)
+        for k, t in named.items():
+            if k not in state:
+                continue
+            new = torch.tensor(np.asarray(state[k]), dtype=t.dtype, device=t.device)  # a copy
+            if k.startswith("stats."):
+                stats[k[len("stats."):]] = new
+            else:
+                t.copy_(new)
+        self.stats = unflatten_like(self.stats, stats)
+
+    def named_parameters(self):
+        return self.state_dict()

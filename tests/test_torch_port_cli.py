@@ -323,15 +323,28 @@ def test_cli_matches_jax_cli_on_launcher_flags(launcher_root, tmp_path, monkeypa
 
 
 def test_unported_branches_raise(fixture_root, tmp_path, restore_stdout):
-    # --parallel_clients runs (tests/test_torch_port_parallel*.py); its round
-    # checkpoints do not
-    for extra, match in ((["--trainer", "Baseline"], "not ported yet"),
-                         (["--parallel_clients", "--resume", str(tmp_path / "ckpt")],
-                          "not ported yet"),
-                         (["--model", "FedBN"], "Unknown aggregation model")):
-        args = tfm.build_arg_parser().parse_args(small_argv(fixture_root, tmp_path, extra=extra))
-        with pytest.raises(NotImplementedError, match=match):
-            tfm.main(args, device="cpu")
+    """An unknown aggregation model raises; ``--trainer Baseline`` and the
+    client-parallel round checkpoints (``--resume``), once refused, now run
+    (their parity: tests/test_torch_port_baseline.py,
+    tests/test_torch_port_resume.py)."""
+    args = tfm.build_arg_parser().parse_args(small_argv(fixture_root, tmp_path / "bn",
+                                                        extra=["--model", "FedBN"]))
+    with pytest.raises(NotImplementedError, match="Unknown aggregation model"):
+        tfm.main(args, device="cpu")
+    args = tfm.build_arg_parser().parse_args(small_argv(
+        fixture_root, tmp_path / "baseline", 1,
+        extra=["--model", "fedavg", "--trainer", "Baseline", "--backbone", "cnn3"]))
+    out = tfm.main(args, device="cpu")
+    sys.stdout = sys.__stdout__
+    assert len(out["acc"]) == 1 and np.isfinite(out["acc"]).all()
+    with np.load(tmp_path / "baseline" / "global_client0_final.npz") as z:
+        assert z["classifier.weight"].shape == (2, 256)
+    args = tfm.build_arg_parser().parse_args(small_argv(
+        fixture_root, tmp_path / "resume", 1,
+        extra=["--parallel_clients", "--resume", str(tmp_path / "ckpt")]))
+    out = tfm.main(args, device="cpu")
+    sys.stdout = sys.__stdout__
+    assert len(out["acc"]) == 1 and os.listdir(tmp_path / "ckpt") == ["step_0"]
 
 
 # --------------------------------------------------------------------------- #

@@ -12,7 +12,9 @@ FedOTP with the prompt-only GLP_OT (COT, as
 GLP_OT, 2 rounds each, and CLIP for its one round.  The acc (and AUC where
 the branch reports it) trajectories agree to atol 1e-6 and the final
 per-client weights to atol 1e-5 (fp32 on both sides, sums in another
-order).  The ``Baseline`` trainer still raises.
+order).  The ``Baseline`` trainer builds (its parity with the JAX
+trainer: tests/test_torch_port_baseline.py) and raises for an unknown
+backbone.
 """
 
 import sys
@@ -76,10 +78,21 @@ def test_branch_matches_jax_cli(fixture_root, tmp_path, monkeypatch, restore_std
 
 
 def test_baseline_trainer_raises():
+    """The Baseline trainer builds over any data manager (cnn3 when no
+    backbone is named) and raises, as the JAX one does, only for a backbone
+    it does not know."""
+    import types
+
     from fairfedmed_tpu_torch.config import get_cfg_default
     from fairfedmed_tpu_torch.train.engine import build_trainer
+    from fairfedmed_tpu_torch.train.trainers.promptfl import Baseline
 
+    dm = types.SimpleNamespace(fed_train_loader_x_dict={}, fed_test_loader_x_dict={},
+                               num_classes=3, lab2cname={0: "a", 1: "b", 2: "c"})
     cfg = get_cfg_default()
     cfg.TRAINER.NAME = "Baseline"
-    with pytest.raises(NotImplementedError, match="ROADMAP M17"):
-        build_trainer(cfg, dm=object(), device="cpu")
+    tr = build_trainer(cfg, dm=dm, device="cpu")
+    assert isinstance(tr, Baseline) and tr.trainable["classifier"]["weight"].shape == (3, 256)
+    cfg.MODEL.BACKBONE.NAME = "alexnet9000"
+    with pytest.raises(KeyError, match="not registered"):
+        build_trainer(cfg, dm=dm, device="cpu")
