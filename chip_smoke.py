@@ -167,6 +167,16 @@ Phases, each printing one JSON line:
      ``--eval-only`` from the checkpoint gives the same test results;
      ``--resume`` restarts at the saved epoch (nothing to train at 2
      epochs, the third epoch only at 3).
+12. ``dist_path``: the client-parallel rounds over several ranks.  The
+   FairLoRA launcher's flags with its ``--parallel_clients`` (ViT-B/16 at
+   full width, rank 12, alpha 2, batch 32) on cli_path's fixture, 2 rounds,
+   each run in spawned processes on the one card: 1 rank against 2 gloo
+   ranks (each makes its group; the CLI's ``main`` on ``cuda:0`` adopts
+   it).  (i) 2 users, bf16: one client per rank, the final weights and
+   acc/AUC bit-equal to 1 rank; (ii) 3 users, fp32: each batch split over
+   the ranks, the weights within 1e-5.  Per rank: round seconds, bytes
+   and host seconds of the state gather, launches.  Where 2 or more cards
+   are visible, the same through torchrun with NCCL, one wait per round.
    Phase names given as arguments run only those phases after the kernel
    checks (a debugging aid: no kernels line and no final ``ok`` line).
 
@@ -326,27 +336,44 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fns, warmup=3) -> float:
+PROFILER_MISSES = []  # device_ms calls whose profiler passes recorded no device time
+
+
+def device_ms(fns, warmup=3, attempts=3) -> float:
     """Mean device time of one call: the summed durations of the CUDA kernels
     that the calls launch (torch.profiler), cycling through ``fns`` at least
     once.  Unlike CUDA events around a run of calls, it leaves out the gaps
-    when the device waits for the host to enqueue."""
+    when the device waits for the host to enqueue.  A profiling pass now and
+    then records no kernel at all; after ``attempts`` such passes the time
+    comes from CUDA events around each call instead, and the miss is listed
+    in ``PROFILER_MISSES`` (printed with the kernel checks)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     iters = max(20, len(fns))
-    with profile(activities=[ProfilerActivity.CUDA]):  # a first profiling pass may record nothing
-        for i in range(warmup):
-            fns[i % len(fns)]()
-        torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fns[i % len(fns)]()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / 1e3 / iters
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]):  # a first pass may record nothing
+            for i in range(warmup):
+                fns[i % len(fns)]()
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fns[i % len(fns)]()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
+    for i, (start, end) in enumerate(events):
+        start.record()
+        fns[i % len(fns)]()
+        end.record()
+    torch.cuda.synchronize()
+    ms = sum(start.elapsed_time(end) for start, end in events) / iters
+    PROFILER_MISSES.append({"fns": len(fns), "attempts": attempts, "events_ms": ms})
+    return ms
 
 
 def host_ms(fn, iters=20, warmup=3) -> float:
@@ -943,11 +970,11 @@ class CheckedRunner(ParallelRoundRunner):
         finally:
             self._data_s += time.perf_counter() - t
 
-    def _round_batches_device(self, idxs_users):
-        return self._timed(super()._round_batches_device, idxs_users)
+    def _round_batches_device(self, *args):
+        return self._timed(super()._round_batches_device, *args)
 
-    def _round_batches(self, idxs_users):
-        return self._timed(super()._round_batches, idxs_users)
+    def _round_batches(self, *args):
+        return self._timed(super()._round_batches, *args)
 
     def _ensure_eval_cache(self, idx):
         return self._timed(super()._ensure_eval_cache, idx)
@@ -2519,12 +2546,277 @@ def train_cli_path(dev):
     return total
 
 
+# --------------------------------------------------------------------------- #
+# phase 12: the client-parallel rounds over several ranks
+# --------------------------------------------------------------------------- #
+
+DIST_DIR = os.path.join(REPO, "build", "chip_smoke_dist")
+DIST_TIMEOUT_S = 240  # per launch; a rank that hangs fails the phase
+DIST_TOL = 1e-5  # fp32 weights with a client's batch split over ranks (as parallel_equiv)
+
+
+def _dist_argv(name, n_users, frac, opts=()):
+    """The FairLoRA launcher's flags with its ``--parallel_clients`` on
+    cli_path's fixture, 2 rounds, ``n_users`` users at ``frac``."""
+    argv = script_flags(SCRIPT, parallel=True)
+    for flag, value in (("--root", SLO_ROOT), ("--output-dir", os.path.join(DIST_DIR, name)),
+                        ("--round", "2"), ("--num_users", str(n_users)), ("--frac", str(frac))):
+        argv = set_flag(argv, flag, value)
+    for flag in ("--config-file", "--dataset-config-file"):
+        i = argv.index(flag)
+        argv[i + 1] = os.path.join(REPO, argv[i + 1])
+    return argv + list(opts)
+
+
+class DistRunner(ParallelRoundRunner):
+    """The runner with each rank's rounds recorded: host seconds of the
+    dispatch and resolve halves, bytes and host seconds of the state gather,
+    and (with ``watch``) every call that waited for the device."""
+
+    watch = False
+    last = None
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.rounds, self.gathers = [], []
+        DistRunner.last = self
+
+    def _gather_round(self, mesh, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = super()._gather_round(mesh, *args)
+        torch.cuda.synchronize()
+        self.gathers.append({"s": time.perf_counter() - t, "bytes": self.gathered_bytes,
+                             "c": mesh.c, "d": mesh.d})
+        return out
+
+    def run_round(self, epoch, idxs_users, max_epoch, **kwargs):
+        t = time.perf_counter()
+        with (sync_watch() if self.watch else contextlib.nullcontext([])) as syncs:
+            out = super().run_round(epoch, idxs_users, max_epoch, **kwargs)
+        self.rounds.append({"round": epoch, "clients": len(idxs_users),
+                            "dispatch_s": time.perf_counter() - t, "dispatch_syncs": syncs})
+        return out
+
+    def resolve_round(self, handle):
+        t = time.perf_counter()
+        with (sync_watch() if self.watch else contextlib.nullcontext([])) as syncs:
+            ms = super().resolve_round(handle)
+        r = next(r for r in self.rounds if r["round"] == handle["epoch"])
+        r.update(resolve_s=time.perf_counter() - t, resolve_syncs=syncs)
+        return ms
+
+
+def _dist_rank(argv, report, device=None, watch=False):
+    """The port's CLI on this rank (its group, if any, already made), with
+    the kernel counters zeroed just before and read just after; writes what
+    the phase reads to ``report``."""
+    from fairfedmed_tpu_torch import federated_main as fm
+    from fairfedmed_tpu_torch.fed import dist as fdist
+
+    DistRunner.watch = watch
+    fm.ParallelRoundRunner = DistRunner
+    A.attention_fwd.launches = A.attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    result = fm.main(fm.build_arg_parser().parse_args(argv), device=device)
+    torch.cuda.synchronize()
+    runner = DistRunner.last
+    with open(report, "w") as f:
+        json.dump({"rank": fdist.get_rank(), "world": fdist.get_world_size(),
+                   "backend": fdist.backend(), "main_s": time.perf_counter() - t0,
+                   "rounds": runner.rounds, "gathers": runner.gathers, "fetches": runner.fetches,
+                   "acc": result["acc"], "auc": result["auc"],
+                   "launches": {"attention_fwd": A.attention_fwd.launches,
+                                "attention_bwd": A.attention_bwd.launches}}, f)
+
+
+def _dist_spawned(rank, world, port, argv, report, device):
+    """A spawned rank: its own gloo group over ``tcp://localhost:port`` (the
+    CLI adopts it), the CLI on ``cuda:0`` (every rank on the one card), its
+    console to a file."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.stdout = open(report.replace(".json", f"_rank{rank}_console.txt"), "w")
+    if world > 1:
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                                rank=rank, timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        _dist_rank(argv, report.replace(".json", f"_rank{rank}.json"), device=device)
+    finally:
+        if world > 1:
+            dist.destroy_process_group()
+        sys.stdout.close()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _dist_run(runs, device="cuda:0"):
+    """Each ``(name, world, argv)`` of ``runs`` as ``world`` spawned ranks on
+    the one card (gloo), the runs at the same time; their reports."""
+    import torch.multiprocessing as mp
+
+    ctxs = [mp.start_processes(_dist_spawned, args=(world, _free_port(), argv,
+                                                    os.path.join(DIST_DIR, f"{name}.json"),
+                                                    device),
+                               nprocs=world, join=False, start_method="spawn")
+            for name, world, argv in runs]
+    deadline = time.perf_counter() + DIST_TIMEOUT_S
+    try:
+        for (name, _, _), ctx in zip(runs, ctxs):
+            while not ctx.join(timeout=5):
+                if time.perf_counter() > deadline:
+                    raise TimeoutError(f"{name}: the ranks did not finish in {DIST_TIMEOUT_S} s")
+    finally:
+        for proc in (p for ctx in ctxs for p in ctx.processes):
+            if proc.is_alive():
+                proc.kill()
+    out = []
+    for name, world, _ in runs:
+        reports = []
+        for rank in range(world):
+            with open(os.path.join(DIST_DIR, f"{name}_rank{rank}.json")) as f:
+                reports.append(json.load(f))
+        out.append(reports)
+    return out
+
+
+def _nccl_run(name, world, argv):
+    """``world`` ranks on ``world`` cards through torchrun (NCCL); their
+    reports, each rank checking one wait per round in its resolve half and
+    none in its dispatch half after round 0."""
+    report = os.path.join(DIST_DIR, f"{name}.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(world), os.path.abspath(__file__), "--dist-rank", report, *argv]
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=DIST_TIMEOUT_S)
+    if out.returncode != 0:
+        raise AssertionError(f"{name}: torchrun exited {out.returncode}:\n{out.stderr[-4000:]}")
+    reports = []
+    for rank in range(world):
+        with open(report.replace(".json", f"_rank{rank}.json")) as f:
+            reports.append(json.load(f))
+    for rep in reports:
+        for r in rep["rounds"]:
+            if len(r["resolve_syncs"]) != 1 or (r["round"] >= 1 and r["dispatch_syncs"]):
+                raise AssertionError(f"{name} rank {rep['rank']} round {r['round']} waited for "
+                                     f"the device: {r}")
+    return reports
+
+
+def _final_weights(name, n_users):
+    out = {}
+    for idx in range(n_users):
+        with np.load(os.path.join(DIST_DIR, name, f"global_client{idx}_final.npz")) as z:
+            out[idx] = {k: z[k] for k in z.files}
+    return out
+
+
+def _weights_err(a, b) -> float:
+    return max(float(np.abs(a[i][k].astype(np.float64) - b[i][k]).max()) for i in b for k in b[i])
+
+
+def _rank_lines(reports):
+    return [{"rank": r["rank"], "world": r["world"], "backend": r["backend"],
+             "main_s": r["main_s"], "fetches": r["fetches"],
+             "round_s": [x["dispatch_s"] + x.get("resolve_s", 0.0) for x in r["rounds"]],
+             "dispatch_s": [x["dispatch_s"] for x in r["rounds"]],
+             "resolve_s": [x.get("resolve_s") for x in r["rounds"]],
+             "gathered_bytes_per_round": [g["bytes"] for g in r["gathers"]],
+             "gather_s": [g["s"] for g in r["gathers"]],
+             "grid": [[g["c"], g["d"]] for g in r["gathers"]], "launches": r["launches"]}
+            for r in reports]
+
+
+def dist_path(dev):
+    """The FairLoRA launcher's client-parallel rounds over 2 ranks on the one
+    card (gloo; each rank a spawned process that makes its group, then the
+    CLI's ``main`` on ``cuda:0`` adopts it), against 1 rank in the same
+    phase, ViT-B/16 at full width, rank 12, alpha 2, batch 32, 2 rounds on
+    cli_path's fixture:
+    (i) 2 users at frac 1.0, bf16: ``m = 2`` over 2 ranks, ``c = 2, d = 1``,
+        one client per rank; the final weights bit-equal to one rank's and
+        acc/AUC equal (the launcher's 3 users at frac 0.8 train all 3 in
+        round 0, a ``c = 1, d = 2`` round);
+    (ii) 3 users at frac 1.0, fp32: ``m = 3``, ``c = 1, d = 2``, every
+        client's batch split over the ranks; weights within 1e-5.
+    Launches: in (i) the ranks' together equal one rank's (each training
+    step runs once, rank 0 evaluates); in (ii) each rank runs every
+    training step on half the batch.  The two one-rank references run at
+    the same time (their times share the card), each 2-rank run alone.  Where 2 or more cards are visible,
+    (i) on 2 and (ii) on min(4, count) ranks through torchrun with NCCL,
+    each rank checking one device wait per round (in its resolve half)."""
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    total = {"attention_fwd": 0, "attention_bwd": 0}
+    out = {"phase": "dist_path", "cases": {}}
+    cases = (("i_d1_bf16", 2, ()), ("ii_d2_fp32", 3, ("TRAINER.GLP_OT.PREC", "fp32")))
+    # the two one-rank references at once, then each 2-rank run alone
+    ones = _dist_run([(f"{case}_one", 1, _dist_argv(f"{case}_one", n_users, 1.0, opts))
+                      for case, n_users, opts in cases])
+    for (case, n_users, opts), (one,) in zip(cases, ones):
+        (two,) = _dist_run([(f"{case}_two", 2, _dist_argv(f"{case}_two", n_users, 1.0, opts))])
+        w_one = _final_weights(f"{case}_one", n_users)
+        w_two = _final_weights(f"{case}_two", n_users)
+        err = _weights_err(w_two, w_one)
+        equal = all(np.array_equal(w_two[i][k], w_one[i][k]) for i in w_one for k in w_one[i])
+        metric_err = max(abs(a - b) for k in ("acc", "auc") for a, b in zip(two[0][k], one[k]))
+        launches = {k: one["launches"][k] + sum(r["launches"][k] for r in two) for k in total}
+        for k in total:
+            total[k] += launches[k]
+        out["cases"][case] = {
+            "users": n_users, "grid": [[g["c"], g["d"]] for g in two[0]["gathers"]],
+            "weights_bit_equal": equal, "weights_max_abs_err": err, "metric_max_abs_err": metric_err,
+            "acc": {"one": one["acc"], "two": two[0]["acc"]},
+            "auc": {"one": one["auc"], "two": two[0]["auc"]},
+            "one_rank": _rank_lines([one])[0], "ranks": _rank_lines(two)}
+        if len(two[0]["acc"]) != 2 or not all(np.isfinite(two[0]["acc"] + two[0]["auc"])):
+            raise AssertionError(f"dist_path {case}: metrics {two[0]['acc']} {two[0]['auc']}")
+        one_l, ranks_l = one["launches"], [r["launches"] for r in two]
+        if case.startswith("i_"):
+            if not equal or metric_err != 0:
+                raise AssertionError(f"dist_path (i): 2 ranks != 1 rank: weights {err}, "
+                                     f"metrics {metric_err}")
+            if {k: sum(r[k] for r in ranks_l) for k in total} != one_l or min(
+                    r["attention_bwd"] for r in ranks_l) == 0:
+                raise AssertionError(f"dist_path (i) launches: ranks {ranks_l}, one {one_l}")
+        else:
+            if err > DIST_TOL or metric_err > 1e-6:
+                raise AssertionError(f"dist_path (ii): weights {err}, metrics {metric_err}")
+            if not (ranks_l[0] == one_l and ranks_l[1]["attention_bwd"] == one_l["attention_bwd"]
+                    and 0 < ranks_l[1]["attention_fwd"] < one_l["attention_fwd"]):
+                raise AssertionError(f"dist_path (ii) launches: ranks {ranks_l}, one {one_l}")
+    count = torch.cuda.device_count()
+    if count >= 2:
+        for (case, n_users, opts), world in zip(cases, (2, min(4, count))):
+            reps = _nccl_run(f"{case}_nccl", world, _dist_argv(f"{case}_nccl", n_users, 1.0, opts))
+            err = _weights_err(_final_weights(f"{case}_nccl", n_users),
+                               _final_weights(f"{case}_one", n_users))
+            out["cases"][f"{case}_nccl"] = {"weights_max_abs_err": err, "ranks": _rank_lines(reps)}
+            if err > (DIST_TOL if "fp32" in case else 0.0):
+                raise AssertionError(f"dist_path {case} over NCCL: weights {err}")
+            for k in total:
+                total[k] += sum(r["launches"][k] for r in reps)
+    else:
+        out["nccl"] = f"the NCCL run needs two cards; {count} visible"
+        print(f"dist_path: the NCCL run needs two cards; {count} visible")
+    out["launches"] = total
+    emit(out)
+    return total
+
+
 PATHS = ("main_path", "cli_path", "oct_path", "rn50_path", "rn50_oct_path", "ot_path",
          "promptfl_path", "fedotp_path", "clip_path", "fedprox_path", "parallel_cli_path",
          "parallel_oct_path", "parallel_rn50_path", "parallel_branches", "parallel_equiv",
          "chexmimic_path", "parallel_chexmimic", "cifar_path", "caltech_path",
          "caltech_vit_parallel", "office_path", "resume_path", "baseline_path",
-         "train_cli_path")
+         "train_cli_path", "dist_path")
 
 
 def kernels_line(rows, launches):
@@ -2569,7 +2861,7 @@ def kernels_line(rows, launches):
 
 def _ensure_fixtures(names):
     """The fixtures the named phases read but an unselected phase writes."""
-    if any(n in names for n in ("resume_path", "baseline_path", "train_cli_path")) \
+    if any(n in names for n in ("resume_path", "baseline_path", "train_cli_path", "dist_path")) \
             and "cli_path" not in names:
         _write_fixture(SLO_ROOT)
     if "baseline_path" in names and "cifar_path" not in names:
@@ -2585,6 +2877,10 @@ def main(argv=()):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if argv and argv[0] == "--dist-rank":  # one torchrun rank of dist_path (NCCL)
+        _dist_rank(list(argv[2:]), argv[1].replace(".json", f"_rank{os.environ['RANK']}.json"),
+                   watch=True)
+        return 0
     names = tuple(argv) or PATHS
     unknown = [n for n in names if n not in PATHS]
     if unknown:
@@ -2604,7 +2900,7 @@ def main(argv=()):
           "kernels_built": sorted(logs), "ptxas_spill_lines": spills})
 
     rows = check_kernels(dev)
-    emit({"phase": "kernel_checks", "rows": rows})
+    emit({"phase": "kernel_checks", "rows": rows, "profiler_misses": PROFILER_MISSES})
     emit(small_reference(dev))
     launches = {}
     if names != PATHS:

@@ -7,6 +7,9 @@ stacked state holds each leaf with a leading client axis.  The JAX package
 runs these as one SPMD program over a device mesh; on one card they are
 plain PyTorch over the stacked tensors.  Sums run in fp32; the results
 that replace parameters are cast back to the parameter's type.
+:func:`make_parallel_round` is JAX ``make_parallel_round`` over the ranks of
+a ``core.mesh.RankMesh``: one client per client shard, the aggregation one
+weighted ``all_reduce``.
 
 The ``lora_S`` predicates are the reference's (utils/fed_utils.py:18-40,
 90-96): a leaf whose path names ``lora_S`` and whose second-to-last axis
@@ -16,9 +19,11 @@ half of its singular values across groups.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
+
+from .dist import all_reduce_sum
 
 
 def _is_group_s(path: str, x: torch.Tensor, num_groups: int, min_dim: int) -> bool:
@@ -83,3 +88,58 @@ def personalize(new_global: dict, local: dict, avg_prompt: int, local_s: bool) -
         else:
             out[path] = g
     return out
+
+
+def make_parallel_round(mesh, local_step: Callable, num_groups: int = 1, avg_prompt: int = 1,
+                        local_s: bool = False, shared_half_s: bool = False,
+                        use_group_weighting: bool = True):
+    """One federated round over the ranks of ``mesh`` (a
+    ``core.mesh.RankMesh``), JAX ``make_parallel_round`` (parallel.py:99-183):
+    each client shard trains its one client, then the FedAvg is ONE weighted
+    ``all_reduce(SUM)`` over the client axis (``lora_S`` leaves by their
+    group weights), then ``apply_shared_half_s``, ``ema_blend`` and
+    ``personalize``.
+
+    ``local_step(trainable, opt_state, batch) -> (trainable, opt_state,
+    loss)`` runs one client's update on one batch (flat dicts).  Returns
+    ``round_fn(stacked_trainable, stacked_opt_state, global_t,
+    stacked_batches, weights, group_weights, beta_decay)``; the stacked
+    inputs hold one client per client shard on their leading axis (it
+    raises otherwise, as JAX :170-181 does), the batches ``[c, S, B, ...]``
+    (every rank of a shard runs its client's whole batch, as under JAX's
+    default ``batch_spec``).  ``round_fn`` returns this rank's
+    shard of the outputs: (its client's personal state and optimizer state,
+    each with a leading axis of 1, the new global state, the clients' mean
+    loss), or None on an idle rank."""
+
+    def round_fn(stacked_trainable, stacked_opt_state, global_t, stacked_batches, weights,
+                 group_weights, beta_decay):
+        n = next(iter(stacked_trainable.values())).shape[0]
+        if n != mesh.c:
+            raise ValueError(f"{n} stacked clients but the mesh has {mesh.c} client shards: "
+                             "stack exactly one client per shard")
+        if mesh.coord is None:
+            return None
+        shard = mesh.coord[0]
+        t = {k: v[shard] for k, v in stacked_trainable.items()}
+        o = {k: v[shard] for k, v in stacked_opt_state.items()}
+        batches = {k: v[shard] for k, v in stacked_batches.items()}  # [S, B, ...]
+        losses = []
+        for s in range(next(iter(batches.values())).shape[0]):
+            t, o, loss = local_step(t, o, {k: v[s] for k, v in batches.items()})
+            losses.append(loss)
+
+        mine = {k: v[None] for k, v in t.items()}
+        gw = group_weights[shard:shard + 1] if (use_group_weighting
+                                                and group_weights is not None) else None
+        part = client_weighted_mean(mine, weights[shard:shard + 1], gw, num_groups)
+        avg = dict(zip(part, all_reduce_sum(list(part.values()), mesh.client_group)))
+        if shared_half_s:
+            avg = apply_shared_half_s(avg, num_groups)
+        new_global = {k: g.to(t[k].dtype)
+                      for k, g in ema_blend(avg, global_t, beta_decay).items()}
+        personal = personalize(new_global, mine, avg_prompt, local_s)
+        (loss_sum,) = all_reduce_sum([torch.stack(losses).float().mean()], mesh.client_group)
+        return personal, {k: v[None] for k, v in o.items()}, new_global, loss_sum / mesh.c
+
+    return round_fn

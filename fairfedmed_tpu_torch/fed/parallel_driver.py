@@ -33,9 +33,24 @@ steps; a relaunch of the same run shape continues after the saved round
 been enqueued, so the round snapshots its own state into the handle: the
 runner rebinds its tensors every round and never writes one in place.
 
-The JAX package runs a round as one SPMD program over a device mesh; on one
-device it trains its clients one after another, as this runner does.  Mesh
-rounds over several cards are not ported.
+The JAX package runs a round as one SPMD program over a device mesh.  Here
+a round runs over the ranks of a ``torch.distributed`` group (one card per
+rank under ``torchrun``, NCCL; or CPU processes, gloo), laid out as JAX's
+(clients x data) mesh (``core/mesh.py``, one layout per round size, cached):
+each client shard trains its contiguous clients one after another, each
+data index its contiguous batch rows, the ranks of a shard summing their
+gradients (the trainers' ``data_group``).  Then ONE ``all_gather`` of one
+byte buffer per rank (its shard's trained state, optimizer state and
+per-step metrics; the first rank of each shard counts, idle ranks send
+zeros) gives every rank the round's stacked clients, and every rank runs
+the same aggregation, so the state stays whole on every rank, as JAX's
+replicated state.  A digest of the round (epoch, users, a checksum of the
+new state), gathered and fetched with the metrics, raises where the ranks
+diverged.  Every rank draws what the one-rank runner draws (each selected
+client's permutation, or every selected loader drained on the host path),
+makes the same cache decisions, and keeps only its own clients' batches;
+rank 0 alone evaluates and writes the round checkpoints.  With one rank the
+round is the one-card round, unchanged.
 
 Intended differences from the sequential loop, as in the JAX package: each
 client owns its optimizer state and keeps it across rounds (the sequential
@@ -54,8 +69,11 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..core.mesh import build_mesh
 from ..train.checkpoint import check_like, latest_step, load_pytree, save_pytree
+from . import dist as fdist
 from .aggregate import _freqs
 from .parallel import (apply_shared_half_s, client_weighted_mean, ema_blend, personalize,
                        stack_clients)
@@ -67,6 +85,22 @@ MODES = ("ema_personal", "fedavg", "prompt_personal", "local_personal", "fedavg_
 
 class ForeignCheckpoint(ValueError):
     """A round checkpoint whose fingerprint is another run shape's."""
+
+
+_INT_VIEW = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _checksum(state: dict) -> torch.Tensor:
+    """A positional checksum of the bits of ``state``'s tensors (int64, on
+    their device; exact, so equal on ranks that hold equal bits)."""
+    total = None
+    for key in sorted(state):
+        v = state[key].detach().contiguous().reshape(-1)
+        bits = v.view(_INT_VIEW[v.element_size()]).long().remainder(65521)
+        w = torch.arange(1, bits.numel() + 1, device=v.device).remainder(65521)
+        part = (bits * w).remainder(65521).sum()
+        total = part if total is None else total + part
+    return total
 
 
 def _pad_rows(arr: np.ndarray, n: int) -> np.ndarray:
@@ -97,8 +131,11 @@ class ParallelRoundRunner:
         self.local_s = bool(cfg.TRAINER.GLP_OT_LORA.LOCAL_S)
         self.shared_half_s = bool(args.shared_half_s)
         self.device = trainer.device
+        self.world, self.rank = fdist.get_world_size(), fdist.get_rank()
+        self._meshes = {}  # round size -> RankMesh
 
-        self._steps = {None: trainer.make_parallel_local_step()}  # raises where unsupported
+        # (fedprox mu, data group) -> step; the probe raises where unsupported
+        self._steps = {(None, None): trainer.make_parallel_local_step()}
         base = trainer.parallel_trainable()
         opt0 = trainer.parallel_opt_state()
         n = self.num_users
@@ -110,11 +147,13 @@ class ParallelRoundRunner:
 
         self._data_cache = {}  # client -> device train set, or None
         self._eval_cache = {}  # client -> device test set, or None
+        self._train_host = {}  # client -> decoded train set not on this rank's device yet
         # ONE budget for every client's train and eval caches
         self._cache_budget = int(os.environ.get(CACHE_BYTES_ENV, 4 << 30))
         self._cached_bytes = 0
         self._pending_eval = None
         self.fetches = 0  # blocking device-to-host fetches made by resolve_round
+        self.gathered_bytes = 0  # the last round's all_gather, every rank's buffer
         self._saved_steps = set()  # the step_N checkpoints this run wrote (or resumed)
         self._attr_col = None
         if not getattr(trainer, "disable_attr", True):
@@ -131,44 +170,73 @@ class ParallelRoundRunner:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def _fetch(self, *tensors) -> list:
-        """ONE blocking device-to-host transfer of ``tensors`` (as fp32)."""
-        flat = torch.cat([t.float().reshape(-1) for t in tensors]).cpu().numpy()
+        """ONE blocking device-to-host transfer of ``tensors`` (floating ones
+        as fp32, others as they are), moved as bytes."""
+        parts = [t.float() if t.is_floating_point() else t for t in tensors]
+        flat = torch.cat([p.contiguous().reshape(-1).view(torch.uint8) for p in parts])
+        flat = flat.cpu().numpy()
         self.fetches += 1
         out, offset = [], 0
-        for t in tensors:
-            out.append(flat[offset:offset + t.numel()].reshape(tuple(t.shape)))
-            offset += t.numel()
+        for p in parts:
+            n = p.numel() * p.element_size()
+            np_type = torch.empty(0, dtype=p.dtype).numpy().dtype
+            out.append(flat[offset:offset + n].view(np_type).reshape(tuple(p.shape)))
+            offset += n
         return out
 
-    def _local_step(self, fedprox_mu):
-        if fedprox_mu not in self._steps:
-            self._steps[fedprox_mu] = self.trainer.make_parallel_local_step(fedprox_mu=fedprox_mu)
-        return self._steps[fedprox_mu]
+    def _mesh(self, m: int):
+        """The round's rank grid for ``m`` clients (JAX
+        parallel_driver.py:142-159), made once per round size."""
+        if m not in self._meshes:
+            self._meshes[m] = build_mesh(m, self.world, self.cfg.DATALOADER.TRAIN_X.BATCH_SIZE,
+                                         getattr(self.trainer, "supports_data_axis", True),
+                                         rank=self.rank)
+        return self._meshes[m]
+
+    def _local_step(self, fedprox_mu, data_group=None):
+        key = (fedprox_mu, data_group)
+        if key not in self._steps:
+            self._steps[key] = self.trainer.make_parallel_local_step(fedprox_mu=fedprox_mu,
+                                                                     data_group=data_group)
+        return self._steps[key]
 
     def _row(self, stacked: dict, idx: int) -> dict:
         return {k: v[idx] for k, v in stacked.items()}
 
     # ------------------------------------------------------------- device caches
-    def _ensure_device_cache(self, idx: int):
-        """Client ``idx``'s train set decoded once and kept on the device, or
-        None (see ``_decode_loader``)."""
-        if idx in self._data_cache:
-            return self._data_cache[idx]
-        decoded = self._decode_loader(self.trainer.fed_train_loader_x_dict[idx])
-        cache = None
-        if decoded is not None:
-            imgs, labels, attrs = decoded
+    def _ensure_device_cache(self, idx: int, upload: bool = True) -> bool:
+        """Whether client ``idx``'s train set has a device cache (see
+        ``_decode_loader``).  The set is decoded once and counted against
+        the budget on every rank, so every rank decides alike; it goes to the
+        device when ``upload`` (the rank trains the client) and waits on the
+        host until then."""
+        if idx in self._data_cache:  # on the device, or refused (None)
+            return self._data_cache[idx] is not None
+        if idx not in self._train_host:
+            decoded = self._decode_loader(self.trainer.fed_train_loader_x_dict[idx])
+            if decoded is None:
+                self._data_cache[idx] = None
+                return False
+            self._cached_bytes += decoded[0].nbytes
+            self._train_host[idx] = decoded
+        if upload:
+            imgs, labels, attrs = self._train_host.pop(idx)
             cache = {"img": self._to_device(imgs),
                      "label": self._to_device(labels.astype(np.int64))}
             if self._attr_col is not None:
                 cache["attr"] = self._to_device(attrs[:, self._attr_col].astype(np.int64))
-            self._cached_bytes += imgs.nbytes
-        self._data_cache[idx] = cache
-        return cache
+            self._data_cache[idx] = cache
+        return True
+
+    def _set_size(self, idx: int) -> int:
+        held = self._train_host.get(idx)
+        return len(held[1]) if held is not None else int(self._data_cache[idx]["label"].shape[0])
 
     def _ensure_eval_cache(self, idx: int):
         """Client ``idx``'s test set on the device (labels and attributes
-        stay on the host for the evaluator), or None."""
+        stay on the host for the evaluator), or None.  On a rank other than
+        0, which never evaluates, the set is decoded and counted against the
+        budget (rank 0's decisions stay every rank's) and dropped."""
         if idx in self._eval_cache:
             return self._eval_cache[idx]
         decoded = self._decode_loader(self.trainer.fed_test_loader_x_dict[idx])
@@ -176,9 +244,11 @@ class ParallelRoundRunner:
         if decoded is not None:
             imgs, labels, attrs = decoded
             self._cached_bytes += imgs.nbytes
-            cache = {"img": self._to_device(imgs), "label": labels, "attrs": attrs,
+            cache = {"img": self._to_device(imgs) if self.rank == 0 else None,
+                     "label": labels, "attrs": attrs,
                      "attr_dev": (self._to_device(attrs[:, self._attr_col].astype(np.int64))
-                                  if attrs is not None and self._attr_col is not None else None)}
+                                  if attrs is not None and self._attr_col is not None
+                                  and self.rank == 0 else None)}
         self._eval_cache[idx] = cache
         return cache
 
@@ -262,20 +332,23 @@ class ParallelRoundRunner:
         return imgs, labels, attrs
 
     # ------------------------------------------------------------- batches
-    def _round_batches_device(self, idxs_users: Sequence[int]):
-        """Per client a function ``step -> device batch`` gathering from its
-        cache, and the clients' step counts; (None, None) when a client has
-        no cache.  The host draws the sequential loader's
-        ``np.random.permutation`` per client, in order, and ships the index
-        matrices in one non-blocking copy.  A client with fewer samples than
-        the batch trains one batch, cycled."""
-        caches = [self._ensure_device_cache(i) for i in idxs_users]
-        if any(c is None for c in caches):
+    def _round_batches_device(self, idxs_users: Sequence[int], own=None, rows=slice(None)):
+        """Per own client a function ``step -> device batch`` gathering its
+        ``rows`` of each batch from its cache, and every client's step
+        count; (None, None) when a client has no cache.  ``own``: the round
+        positions this rank trains (all by default).  The host draws the
+        sequential loader's ``np.random.permutation`` for every client, in
+        order, and ships the own clients' index matrices in one non-blocking
+        copy.  A client with fewer samples than the batch trains one batch,
+        cycled."""
+        own = range(len(idxs_users)) if own is None else own
+        if not all([self._ensure_device_cache(i, upload=j in own)
+                    for j, i in enumerate(idxs_users)]):
             return None, None
         bs = self.cfg.DATALOADER.TRAIN_X.BATCH_SIZE
         idx_mats, n_steps = [], []
-        for c in caches:
-            n = int(c["label"].shape[0])
+        for i in idxs_users:
+            n = self._set_size(i)
             perm = np.random.permutation(n)
             stop = (n // bs) * bs if n >= bs else n
             sel = perm[:stop]
@@ -284,26 +357,31 @@ class ParallelRoundRunner:
             steps = max(stop // bs, 1)
             idx_mats.append(sel.reshape(steps, bs))
             n_steps.append(steps)
+        if not own:
+            return [], n_steps
         s_max = max(n_steps)
         mats = self._to_device(np.stack([
-            np.concatenate([m_, np.repeat(m_[:1], s_max - m_.shape[0], axis=0)])
-            for m_ in idx_mats]).astype(np.int64))  # [m, S, B]
+            np.concatenate([m_, np.repeat(m_[:1], s_max - m_.shape[0], axis=0)])[:, rows]
+            for m_ in (idx_mats[j] for j in own)]).astype(np.int64))  # [own, S, rows]
 
-        def stream(j, c):
+        def stream(jj, c):
             def batch(i):
-                sel = mats[j, i]
+                sel = mats[jj, i]
                 return {k: v.index_select(0, sel) for k, v in c.items()}
             return batch
 
-        return [stream(j, c) for j, c in enumerate(caches)], n_steps
+        return [stream(jj, self._data_cache[idxs_users[j]]) for jj, j in enumerate(own)], n_steps
 
-    def _round_batches(self, idxs_users: Sequence[int]):
+    def _round_batches(self, idxs_users: Sequence[int], own=None, rows=slice(None)):
         """The host path: every selected client's loader drained (in order,
-        so the shuffles draw as the sequential loop's do), each batch padded
-        to the batch size by cycling; an empty client trains zero steps."""
+        so the shuffles and host transforms draw as the sequential loop's
+        do, on every rank), each batch padded to the batch size by cycling;
+        an empty client trains zero steps.  Streams of the own clients'
+        ``rows`` only."""
+        own = range(len(idxs_users)) if own is None else own
         bs = self.cfg.DATALOADER.TRAIN_X.BATCH_SIZE
         streams, n_steps = [], []
-        for idx in idxs_users:
+        for j, idx in enumerate(idxs_users):
             batches = []
             for b in self.trainer.fed_train_loader_x_dict[idx]:
                 batch = {"img": _pad_rows(np.asarray(b["img"]), bs),
@@ -311,8 +389,9 @@ class ParallelRoundRunner:
                 if self._attr_col is not None:
                     batch["attr"] = _pad_rows(np.asarray(b["attrs"][:, self._attr_col],
                                                          np.int64), bs)
-                batches.append(batch)
-            streams.append(batches)
+                batches.append({k: v[rows] for k, v in batch.items()})
+            if j in own:
+                streams.append(batches)
             n_steps.append(len(batches))
         if max(n_steps) == 0:
             raise ValueError(f"every selected client has an empty train set "
@@ -354,27 +433,36 @@ class ParallelRoundRunner:
         lrs = [trainer.lr_sched.lr(trainer._lr_steps + j * mult) for j in range(m)]
         trainer._lr_steps += m * mult
 
-        streams, n_steps = self._round_batches_device(idxs_users)
+        mesh = self._mesh(m)
+        own, rows = mesh.own_clients, slice(None)
+        if mesh.coord is not None and mesh.d > 1:
+            rows = mesh.batch_rows(mesh.coord[1])
+        streams, n_steps = self._round_batches_device(idxs_users, own, rows)
         if streams is None:
-            streams, n_steps = self._round_batches(idxs_users)
+            streams, n_steps = self._round_batches(idxs_users, own, rows)
         s_max = max(n_steps)
-        step = self._local_step(fedprox_mu)
+        step = self._local_step(fedprox_mu, mesh.data_group)
         ctx_global = (self.global_t["prompt_learner.ctx"].float()
                       if fedprox_mu is not None else None)
         zero = torch.zeros(3, device=self.device)
         trained_t, trained_o, metrics = [], [], []
-        for j, idx in enumerate(idxs_users):  # one client after another, as on one TPU
+        for jj, j in enumerate(own):  # a shard's clients one after another, as on one TPU
+            idx = idxs_users[j]
             t, o = self._row(self.personal_t, idx), self._row(self.stacked_o, idx)
             ms = []
             for i in range(n_steps[j]):
-                t, o, mt = step(t, o, streams[j](i), lrs[j], ctx_global)
+                t, o, mt = step(t, o, streams[jj](i), lrs[j], ctx_global)
                 ms.append(mt)
             ms += [zero] * (s_max - n_steps[j])  # a ragged client's extra steps do not run
             trained_t.append(t)
             trained_o.append(o)
             metrics.append(torch.stack(ms))
-        trained_t, trained_o = stack_clients(trained_t), stack_clients(trained_o)
-        metrics = torch.stack(metrics)  # [m, S, 3]: loss, valid, acc (0 where no step ran)
+        if self.world > 1:
+            trained_t, trained_o, metrics = self._gather_round(mesh, trained_t, trained_o,
+                                                               metrics, s_max)
+        else:
+            trained_t, trained_o = stack_clients(trained_t), stack_clients(trained_o)
+            metrics = torch.stack(metrics)  # [m, S, 3]: loss, valid, acc (0 where no step ran)
 
         # aggregation weights (host scalars, fed/aggregate.py semantics)
         freqs, freqs_by_attr = _freqs(
@@ -404,17 +492,25 @@ class ParallelRoundRunner:
         self.stacked_o = {k: v.index_copy(0, idx_dev, trained_o[k].to(v.dtype))
                           for k, v in self.stacked_o.items()}
 
-        # the round's evaluation, enqueued behind the aggregation
+        digests = None
+        if self.world > 1:  # every rank's digest of the round, fetched with the metrics
+            digests = self._all_gather(self._digest(epoch, idxs_users))
+        # the round's evaluation, enqueued behind the aggregation (rank 0
+        # evaluates; the others make its cache decisions)
         pending = None
-        if eval_users is not None:
+        if eval_users is not None and self.rank == 0:
             pending = self._eval_dispatch([int(i) for i in eval_users])
             if pending is not None:
                 pending["epoch"] = epoch
+        elif eval_users is not None:
+            for i in eval_users:
+                self._ensure_eval_cache(int(i))
         # round r's own state for its checkpoint: by the time a deferred
         # round resolves, self.* hold round r+1's tensors (new ones: nothing
         # here writes a state tensor in place)
         handle = {"epoch": epoch, "max_epoch": max_epoch, "idxs_users": idxs_users, "lrs": lrs,
                   "n_steps": n_steps, "metrics": metrics, "pending_eval": pending,
+                  "digests": digests,
                   "state": (self.global_t, self.personal_t, self.stacked_o),
                   "lr_steps": int(trainer._lr_steps)}
         if deferred:
@@ -427,10 +523,15 @@ class ParallelRoundRunner:
         then the round checkpoint when one is due (its own one fetch).  The
         fetched evaluation waits for :meth:`parallel_eval`."""
         pend = handle["pending_eval"]
+        digests = handle["digests"]
+        fetched = self._fetch(handle["metrics"],
+                              *([] if pend is None else [pend["logits"]]),
+                              *([] if digests is None else [digests]))
+        ms = fetched[0]
         if pend is not None:
-            ms, pend["logits_host"] = self._fetch(handle["metrics"], pend["logits"])
-        else:
-            (ms,) = self._fetch(handle["metrics"])
+            pend["logits_host"] = fetched[1]
+        if digests is not None:
+            self._check_digests(handle["epoch"], fetched[-1])
         self._pending_eval = pend
         for j, idx in enumerate(handle["idxs_users"]):
             nv = max(float(ms[j, :, 1].sum()), 1.0)
@@ -441,7 +542,7 @@ class ParallelRoundRunner:
         # checkpoint directory asks for preemption recovery
         epoch, max_epoch = handle["epoch"], handle["max_epoch"]
         ckpt_dir = self._round_ckpt_dir()
-        if ckpt_dir:
+        if ckpt_dir and self.rank == 0:  # the state is the same on every rank
             freq = max(int(self.cfg.TRAIN.CHECKPOINT_FREQ), 1)
             if epoch + 1 >= max_epoch or (epoch + 1) % freq == 0:
                 path = self.save_round_state(ckpt_dir, epoch, state=handle["state"],
@@ -449,6 +550,73 @@ class ParallelRoundRunner:
                 print(f"round state -> {path}")
                 self._prune_round_ckpts(ckpt_dir, keep=epoch)
         return ms
+
+    # ------------------------------------------------------------- several ranks
+    def _all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """``[world, *t.shape]``: every rank's ``t``."""
+        parts = [torch.empty_like(t) for _ in range(self.world)]
+        dist.all_gather(parts, t.contiguous())
+        return torch.stack(parts)
+
+    def _gather_round(self, mesh, trained_t, trained_o, metrics, s_max):
+        """The round's stacked ``[m]`` trainables, optimizer states and
+        metrics on every rank, from ONE ``all_gather`` of one byte buffer per
+        rank: its shard's clients, laid out as the state's leaves (checked
+        against their dtypes), each piece padded to 16 bytes; idle ranks send
+        zeros.  Shard ``i``'s rows come from its first rank, and the bytes
+        come back exactly."""
+        k = mesh.per_shard
+        layout = ([("t", key, v.dtype, (k,) + tuple(v.shape[1:]))
+                   for key, v in self.personal_t.items()]
+                  + [("o", key, v.dtype, (k,) + tuple(v.shape[1:]))
+                     for key, v in self.stacked_o.items()]
+                  + [("m", "metrics", torch.float32, (k, s_max, 3))])
+        sizes = [torch.Size(shape).numel() * torch.empty(0, dtype=dt).element_size()
+                 for _, _, dt, shape in layout]
+        padded = [-(-n // 16) * 16 for n in sizes]
+        if mesh.coord is None:
+            buf = torch.zeros(sum(padded), dtype=torch.uint8, device=self.device)
+        else:
+            own = {"t": stack_clients(trained_t), "o": stack_clients(trained_o),
+                   "m": {"metrics": torch.stack(metrics)}}
+            pieces = []
+            for (part, key, dt, shape), n, pn in zip(layout, sizes, padded):
+                v = own[part][key]
+                if v.dtype != dt or tuple(v.shape) != shape:
+                    raise TypeError(f"{part}:{key} is {v.dtype} {tuple(v.shape)}, the round "
+                                    f"layout {dt} {shape}")
+                pieces.append(v.contiguous().reshape(-1).view(torch.uint8))
+                if pn > n:
+                    pieces.append(torch.zeros(pn - n, dtype=torch.uint8, device=self.device))
+            buf = torch.cat(pieces)
+        gathered = self._all_gather(buf)
+        self.gathered_bytes = gathered.numel()
+        out = {"t": {}, "o": {}, "m": {}}
+        for part, key, dt, shape in layout:
+            out[part][key] = []
+        for i in range(mesh.c):
+            row, offset = gathered[int(mesh.ranks[i, 0])], 0
+            for (part, key, dt, shape), n, pn in zip(layout, sizes, padded):
+                out[part][key].append(row[offset:offset + n].view(dt).reshape(shape))
+                offset += pn
+        cat = {part: {key: torch.cat(vs) for key, vs in d.items()} for part, d in out.items()}
+        return cat["t"], cat["o"], cat["m"]["metrics"]
+
+    def _digest(self, epoch: int, idxs_users) -> torch.Tensor:
+        """int64 ``[5]`` on the device: the epoch, the number of users, a
+        CRC of them, and a positional checksum (mod 65521) of the new global
+        and per-client state's bits."""
+        head = self._to_device(np.asarray(
+            [epoch, len(idxs_users), zlib.crc32(",".join(map(str, idxs_users)).encode())],
+            np.int64))
+        return torch.cat([head, torch.stack([_checksum(self.global_t),
+                                             _checksum(self.personal_t)])])
+
+    def _check_digests(self, epoch: int, digests: np.ndarray) -> None:
+        if not (digests == digests[:1]).all():
+            raise RuntimeError(
+                f"the ranks diverged in round {epoch}: per rank [epoch, users, users CRC, global "
+                f"checksum, client checksum] = {digests.tolist()}")
 
     def _aggregate(self, mode, trained_t, weights, group_w, beta_decay, idx, update_idx, keep):
         """(new global, new personal states) for ``mode`` (JAX

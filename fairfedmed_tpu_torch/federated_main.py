@@ -25,6 +25,15 @@ defaults and the printed lines are the JAX CLI's.
 ``main`` runs on ``cuda`` and raises when no GPU is present; the override
 ``USE_CUDA False`` (or ``main(args, device="cpu")``) runs the plain PyTorch
 paths on the CPU.
+
+Under ``torchrun`` (``python -m torch.distributed.run --nproc_per_node N -m
+fairfedmed_tpu_torch.federated_main ... --parallel_clients``) each round's
+clients spread over the N ranks (``fed/parallel_driver.py``): one card per
+rank with NCCL, or N CPU processes with gloo under ``USE_CUDA False``.
+Every rank runs the same round loop and draws the same users; rank 0 alone
+prints, writes ``log.txt`` and the scalars, evaluates and saves.  Over
+several ranks only the client-parallel rounds run: the sequential loop,
+CLIP and Baseline raise, as the JAX package runs them on one device.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import torch
 from .config import CfgNode as CN
 from .config import get_cfg_default
 from .core.device import resolve_device
+from .fed import dist as fdist
 from .fed.aggregate import average_weights, average_weights_ema
 from .fed.parallel_driver import ParallelRoundRunner
 from .fed.sampler import sample_clients
@@ -225,12 +235,28 @@ def main(args, device=None):
     args.idxs_users_train = _int_list(args.idxs_users_train)
     args.idxs_users_test = _int_list(args.idxs_users_test)
     cfg = setup_cfg(args)
+    # under torchrun: join the group (cuda:<LOCAL_RANK> on cards)
+    device = fdist.init_from_env(device if device is not None else
+                                 "cuda" if cfg.USE_CUDA else "cpu")
+    world, is_main = fdist.get_world_size(), fdist.is_main_process()
+    if world > 1 and not cfg.TRAIN.PARALLEL_CLIENTS:
+        raise RuntimeError(f"{world} ranks run only the client-parallel rounds: pass "
+                           "--parallel_clients (the sequential loop runs on one process)")
     if cfg.SEED >= 0:
         set_random_seed(cfg.SEED)
-    setup_logger(cfg.OUTPUT_DIR)
+    if is_main:
+        setup_logger(cfg.OUTPUT_DIR)
+    else:  # rank 0 prints and writes the log
+        sys.stdout = open(os.devnull, "w")
     print_args(args, cfg)
     _check_model(args)
-    device = resolve_device(device if device is not None else "cuda" if cfg.USE_CUDA else "cpu")
+    device = resolve_device(device)
+    if world == 1 and device.type == "cuda" and torch.cuda.device_count() > 1:
+        n = torch.cuda.device_count()
+        print(f"{n} CUDA devices are visible and this run uses one; `python -m "
+              f"torch.distributed.run --standalone --nproc_per_node {n} -m "
+              "fairfedmed_tpu_torch.federated_main ... --parallel_clients` spreads each "
+              "round's clients over them")
 
     local_weights = [[] for _ in range(args.num_users)]
     local_weights_0 = [[] for _ in range(args.num_users)]
@@ -238,7 +264,10 @@ def main(args, device=None):
     local_weights_per = [{} for _ in range(args.num_users)]
 
     local_trainer = build_trainer(cfg, device=device)
-    local_trainer.fed_before_train()
+    if is_main:  # the scalars' writer
+        local_trainer.fed_before_train()
+    else:
+        local_trainer.init_writer(None)
     named = local_trainer.named_parameters()
     count_parameters(named, "prompt_learner")
     count_parameters(named, "image_encoder")
@@ -269,6 +298,10 @@ def main(args, device=None):
     if cfg.TRAIN.PARALLEL_CLIENTS:
         runner = _build_runner(cfg, args, local_trainer, datanumber_client,
                                datanumber_client_by_attr)
+    if world > 1 and runner is None:
+        raise RuntimeError(f"{world} ranks run only the client-parallel rounds, which "
+                           "--parallel_clients does not take for this model/trainer; the "
+                           "JAX package runs it on one device")
 
     max_epoch = cfg.OPTIM.ROUND
     global_test_acc_list, global_test_error_list = [], []
@@ -319,6 +352,8 @@ def main(args, device=None):
             for line in pre_lines:
                 print(line)
             runner.resolve_round(handle)
+            if not is_main:  # rank 0 evaluates
+                return
             print("------------local train finish epoch:", epoch, "-------------")
             for line in post_train_lines:
                 print(line)
@@ -535,6 +570,8 @@ def main(args, device=None):
                     idxs = [int(i) for i in idxs_users]
                     runner.run_round(epoch, idxs, max_epoch, mode="local_personal",
                                      test_users=idxs, eval_users=idxs)
+                    if not is_main:
+                        break
                     results = evaluate_parallel(idxs, epoch)
                 else:
                     for idx in idxs_users:
@@ -561,6 +598,10 @@ def main(args, device=None):
 
     if pending_flush is not None:  # the last deferred round
         pending_flush()
+    if not is_main:
+        fdist.shutdown()
+        return {"acc": global_test_acc_list, "auc": global_test_auc_list,
+                "time": global_time_list}
 
     # final per-client weights (federated_main.py:775-778); the local branch
     # never fills the personalization store, so it saves the initial weights
@@ -578,6 +619,7 @@ def main(args, device=None):
         print(f"maximum test acc: {max(global_test_acc_list)}")
         print(f"mean of acc: {np.mean(global_test_acc_list[-5:])}")
         print(f"std of acc: {np.std(global_test_acc_list[-5:])}")
+    fdist.shutdown()
     return {"acc": global_test_acc_list, "auc": global_test_auc_list, "time": global_time_list}
 
 

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
+from ..fed.dist import all_reduce_sum
 from ..core.precision import Policy, policy_from_prec
 from ..models import converter, resnet_clip
 from ..models.clip_model import (PRESETS, CLIPConfig, init_clip_params, init_text_params,
@@ -131,7 +132,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def fairness_confidence_loss(logits, labels, attr, num_groups: int,
-                             differentiable: bool = False) -> torch.Tensor:
+                             differentiable: bool = False, group=None) -> torch.Tensor:
     """Confidence-gap fairness regulariser (GLP_OT_SVLoRA.py:908-948).
 
     Per group g: c_g = 1 - mean_{i in g} p_i[y_i]; loss = mean_g |c_g - mean(c)|
@@ -139,12 +140,29 @@ def fairness_confidence_loss(logits, labels, attr, num_groups: int,
     ``torch.tensor(list(...))``, which detaches it, so by default the term
     adds to the loss and not to the gradient; ``differentiable=True`` gives
     the intended gradient.
+
+    ``group``: the process group a client's batch is split over.  The group
+    means are not linear in the split, so the per-group counts and
+    confidence sums are summed over the group before the gap is formed
+    (JAX clip_common.py:186-188); every rank then holds the full batch's
+    term.  Differentiable, the sum is ``torch.distributed.nn``'s
+    ``all_reduce``, whose backward sums the ranks' cotangents: each rank's
+    samples see the group's total, and the caller's mean of the gradients
+    over the group is the full batch's gradient, as under JAX's ``psum``.
     """
     probs = torch.softmax(logits.float(), dim=-1)
     correct = probs.gather(1, labels.long()[:, None])[:, 0]
     one_hot = F.one_hot(attr.long(), num_groups).float()  # [B, G]
     count = one_hot.sum(0)
     sum_conf = (one_hot * correct[:, None]).sum(0)
+    if group is not None:
+        both = torch.stack([count, sum_conf])
+        if differentiable:
+            from torch.distributed.nn.functional import all_reduce
+            both = all_reduce(both, group=group)
+        else:
+            both = all_reduce_sum([both], group)[0]
+        count, sum_conf = both[0], both[1]
     present = count > 0
     n_present = present.sum().clamp_min(1)
     conf = 1.0 - sum_conf / count.clamp_min(1.0)

@@ -61,11 +61,18 @@ class TrainerBase:
 
     # -- tensorboard -------------------------------------------------------
     def init_writer(self, log_dir):
+        """The scalars' writer under ``log_dir``.  ``log_dir`` None imports
+        the writer's module and makes no writer: a rank that writes no
+        scalars then draws from numpy's global RNG what rank 0's import
+        draws (TensorFlow's import draws where it is installed), so the ranks
+        sample alike."""
         if self._writer is None:
             try:
                 from torch.utils.tensorboard import SummaryWriter
             except ImportError as e:  # tensorboard is optional
                 print(f"TensorBoard unavailable ({e}); scalars will not be written")
+                return
+            if log_dir is None:
                 return
             mkdir_if_missing(log_dir)
             self._writer = SummaryWriter(log_dir=log_dir)

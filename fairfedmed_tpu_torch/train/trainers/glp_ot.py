@@ -32,12 +32,14 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ...adapters.lora import group_mix, init_lora
 from ...core.pytree import flatten_paths, unflatten_like
 from ...data.transforms import device_preprocess
 from ...evaluation import metrics as eval_metrics
+from ...fed.dist import all_reduce_sum
 from ...models.clip_model import l2_normalize, pool_index, text_encode, vit_encode
 from ...models.prompt_learner import assemble_prompts, init_prompt_learner
 from ...models.resnet_clip import resnet_encode
@@ -341,13 +343,16 @@ class GLPOTBase(TrainerX):
         sim_op = sim_op.reshape(image.shape[0], -1, self.n_cls).mean(1)
         return self.frozen["logit_scale"].float().exp() * sim_op, valid, new_stats
 
-    def _task_loss(self, logits, label, attr):
+    def _task_loss(self, logits, label, attr, group=None):
+        """CE plus the fairness term; ``group`` is the data group a client's
+        batch is split over, whose group counts and confidence sums the term
+        sums before it forms the gap."""
         loss = cross_entropy(logits, label)
         lam = self.cfg.TRAINER.LAMBDA_FAIRNESS if self.use_lora else 0.0
         if not self.disable_attr and lam != 0.0:
             diff = bool(getattr(self.cfg.TRAINER.GLP_OT_LORA, "DIFFERENTIABLE_FAIRNESS", False))
             loss = loss + lam * fairness_confidence_loss(logits, label, attr, self.num_groups,
-                                                         differentiable=diff)
+                                                         differentiable=diff, group=group)
         return loss
 
     def _loss(self, logits, label, attr):
@@ -453,7 +458,13 @@ class GLPOTBase(TrainerX):
         stats = tree.pop(BN_STATS, {}) if self.backbone_type == "resnet" else self.stats
         return tree, stats
 
-    def make_parallel_local_step(self, fedprox_mu=None):
+    @property
+    def supports_data_axis(self) -> bool:
+        """ResNet BatchNorm batch statistics would be per data shard; a
+        within-client data split would change them (JAX glp_ot.py:586-589)."""
+        return self.backbone_type == "vit"
+
+    def make_parallel_local_step(self, fedprox_mu=None, data_group=None):
         """One client's step for the client-parallel round (JAX
         ``make_parallel_local_step``, glp_ot.py:483-546):
         ``local_step(params, opt_state, batch, lr, ctx_global) -> (params,
@@ -465,8 +476,15 @@ class GLPOTBase(TrainerX):
         statistics take the forward's, valid or not.  ``metrics`` stays on
         the device: [loss * valid, valid, acc * valid].  With ``fedprox_mu``
         the loss adds the FedProx term toward ``ctx_global``, the round's
-        global context."""
+        global context.  With ``data_group`` (the ranks a client's batch is
+        split over) the gradients, loss and accuracy are averaged over the
+        group in one ``all_reduce``, the plan is valid only where it is
+        valid on every rank, and the fairness term sums its group statistics
+        over the group first (JAX glp_ot.py:462-467, :525-529)."""
+        if self.backbone_type == "resnet" and data_group is not None:
+            raise NotImplementedError("ResNet parallel rounds do not split the within-client batch")
         opt, n_opt = self.parallel_optimizer, self.opt_steps_per_batch
+        n_data = dist.get_world_size(data_group) if data_group is not None else 1
         differentiable = bool(getattr(self.cfg.TRAINER, "DIFFERENTIABLE_FEDPROX", False))
 
         def local_step(params, opt_state, batch, lr, ctx_global=None):
@@ -475,7 +493,7 @@ class GLPOTBase(TrainerX):
             tree, stats = self._unflatten({**params, **leaves})
             logits, valid, new_stats = self._forward(batch["img"], batch.get("attr"), train=True,
                                                      trainable=tree, stats=stats)
-            loss = self._task_loss(logits, batch["label"], batch.get("attr"))
+            loss = self._task_loss(logits, batch["label"], batch.get("attr"), group=data_group)
             if fedprox_mu is not None:
                 loss = loss + fedprox_term(tree["prompt_learner"]["ctx"], ctx_global, fedprox_mu,
                                            differentiable=differentiable)
@@ -483,12 +501,20 @@ class GLPOTBase(TrainerX):
             with torch.no_grad():
                 grads = {k: torch.zeros_like(v) if g is None else g
                          for (k, v), g in zip(leaves.items(), grads)}
+                loss = loss.detach().float()
+                acc = accuracy_from_logits(logits.detach(), batch["label"])
+                if data_group is not None:
+                    ok = torch.ones_like(loss) if valid is None else valid.float()
+                    *summed, stats = all_reduce_sum(
+                        list(grads.values()) + [torch.stack([loss, acc, ok])], data_group)
+                    grads = {k: g / n_data for k, g in zip(grads, summed)}
+                    loss, acc = stats[0] / n_data, stats[1] / n_data
+                    if valid is not None:  # valid on every rank of the group
+                        valid = stats[2] == n_data
                 old = {k: v.detach() for k, v in leaves.items()}
                 new_p, new_o = old, opt_state
                 for _ in range(n_opt):
                     new_p, new_o = opt.update(new_p, grads, new_o, lr)
-                loss = loss.detach().float()
-                acc = accuracy_from_logits(logits.detach(), batch["label"])
                 if valid is None:
                     metrics = torch.stack([loss, torch.ones_like(loss), acc])
                 else:  # an invalid plan keeps the old parameters and optimizer state

@@ -31,9 +31,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ...core.pytree import flatten_paths, unflatten_like
 from ...data.transforms import device_preprocess
+from ...fed.dist import all_reduce_sum
 from ...models.clip_model import l2_normalize, pool_index, text_encode, vit_encode
 from ...models.prompt_learner import assemble_prompts, init_prompt_learner
 from ...models.resnet_clip import resnet_encode
@@ -171,15 +173,19 @@ class _CosineCLIPTrainer(TrainerX):
     def adopt_parallel_trainable(self, flat: dict):
         self.ctx.copy_(flat["prompt_learner.ctx"])
 
-    def make_parallel_local_step(self, fedprox_mu=None):
+    def make_parallel_local_step(self, fedprox_mu=None, data_group=None):
         """One client's step for the client-parallel round (JAX
         promptfl.py:150-185): ``local_step(params, opt_state, batch, lr,
         ctx_global) -> (params, opt_state, metrics)`` over flat dicts, new
         tensors out, ``metrics`` = [loss, 1, acc] on the device.  With
         ``fedprox_mu`` the loss adds the FedProx term toward
-        ``ctx_global``."""
+        ``ctx_global``.  With ``data_group`` (the ranks a client's batch is
+        split over) the gradient, loss and accuracy are averaged over the
+        group in one ``all_reduce`` (JAX promptfl.py:177-180); both towers
+        are frozen, BatchNorm included, so ResNet splits its batch too."""
         opt = self.parallel_optimizer
         differentiable = bool(getattr(self.cfg.TRAINER, "DIFFERENTIABLE_FEDPROX", False))
+        n_data = dist.get_world_size(data_group) if data_group is not None else 1
 
         def local_step(params, opt_state, batch, lr, ctx_global=None):
             ctx = params["prompt_learner.ctx"].detach().requires_grad_(True)
@@ -190,11 +196,14 @@ class _CosineCLIPTrainer(TrainerX):
                                            differentiable=differentiable)
             (grad,) = torch.autograd.grad(loss, [ctx])
             with torch.no_grad():
+                loss = loss.detach().float()
+                acc = accuracy_from_logits(logits.detach(), batch["label"])
+                if data_group is not None:
+                    grad, stats = all_reduce_sum([grad, torch.stack([loss, acc])], data_group)
+                    grad, loss, acc = grad / n_data, stats[0] / n_data, stats[1] / n_data
                 new_p, new_o = opt.update({"prompt_learner.ctx": ctx.detach()},
                                           {"prompt_learner.ctx": grad}, opt_state, lr)
-                loss = loss.detach().float()
-                metrics = torch.stack([loss, torch.ones_like(loss),
-                                       accuracy_from_logits(logits.detach(), batch["label"])])
+                metrics = torch.stack([loss, torch.ones_like(loss), acc])
             return new_p, new_o, metrics
 
         return local_step

@@ -207,7 +207,7 @@ def test_parallel_runner_refuses_the_device_cache_for_a_sampler():
     runner = tdriver.ParallelRoundRunner.__new__(tdriver.ParallelRoundRunner)
     runner.cfg, runner.device, runner._attr_col = _Cfg, torch.device("cpu"), None
     runner.trainer = type("T", (), {"fed_train_loader_x_dict": {0: loader}})()
-    runner._data_cache, runner._eval_cache = {}, {}
+    runner._data_cache, runner._eval_cache, runner._train_host = {}, {}, {}
     runner._cache_budget, runner._cached_bytes = 1 << 30, 0
     assert runner._decode_loader(loader) is None
     assert runner._round_batches_device([0]) == (None, None)

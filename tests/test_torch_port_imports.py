@@ -57,3 +57,14 @@ def test_the_client_parallel_modules_are_guarded():
     for name in ("fed.parallel", "fed.parallel_driver", "fed.sampler", "utils.profiling"):
         assert f"fairfedmed_tpu_torch.{name}" in mods, name
         assert (PORT / (name.replace(".", "/") + ".py")).read_text().count("import jax") == 0
+
+
+def test_the_modules_of_rounds_over_several_ranks_and_the_host_tools_are_guarded():
+    """The rank grid, the process-group helpers and the two host tools are
+    among the modules the guard imports and scans, and the tools read no
+    pandas."""
+    mods = set(_port_modules())
+    for name in ("core.mesh", "fed.dist", "tools.get_mean_std", "tools.parse_test_res"):
+        assert f"fairfedmed_tpu_torch.{name}" in mods, name
+    for name in ("get_mean_std", "parse_test_res"):
+        assert "pandas" not in (PORT / "tools" / f"{name}.py").read_text().split('"""')[2]
