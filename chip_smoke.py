@@ -167,7 +167,15 @@ Phases, each printing one JSON line:
      ``--eval-only`` from the checkpoint gives the same test results;
      ``--resume`` restarts at the saved epoch (nothing to train at 2
      epochs, the third epoch only at 3).
-12. ``dist_path``: the client-parallel rounds over several ranks.  The
+12. ``timing_path``: the FairLoRA launcher's parallel rounds with
+   ``FAIRFEDMED_TIMING=1`` on cli_path's fixture (2 rounds) and on
+   oct_path's (1 round), stdout and stderr kept: every round prints the
+   JAX runner's labels in its order, every build stamp appears once per
+   trainer build, the times are finite and >= 0, a round's labels sum to
+   at most its wall time (dispatch, resolve and evaluation) plus 5%, and
+   the SLO run launches the kernels as parallel_cli_path did; per round
+   the seconds of each label and the wall times of both runs.
+13. ``dist_path``: the client-parallel rounds over several ranks.  The
    FairLoRA launcher's flags with its ``--parallel_clients`` (ViT-B/16 at
    full width, rank 12, alpha 2, batch 32) on cli_path's fixture, 2 rounds,
    each run in spawned processes on the one card: 1 rank against 2 gloo
@@ -197,6 +205,7 @@ import contextlib
 import copy
 import csv
 import gc
+import io
 import json
 import math
 import os
@@ -1006,9 +1015,11 @@ class CheckedRunner(ParallelRoundRunner):
         return ms
 
     def parallel_eval(self, idxs_users, current_epoch):
+        t = time.perf_counter()
         with sync_watch() as syncs:  # after its round's resolve_round
             out = super().parallel_eval(idxs_users, current_epoch)
         self.resolved[-1]["syncs"] += syncs
+        self.resolved[-1]["eval_s"] = time.perf_counter() - t
         return out
 
 
@@ -1227,6 +1238,7 @@ def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None
         res.update(
             rounds=[{**{k: v for k, v in d.items() if k != "syncs"}, "dispatch_syncs": d["syncs"],
                      "resolve_s": r["resolve_s"], "resolve_syncs": r["syncs"],
+                     "eval_s": r.get("eval_s"),
                      "clients": r["clients"], "n_steps": r["n_steps"]}
                     for d, r in zip(runner.dispatches, runner.resolved)],
             fetches=runner.fetches, cache_bytes=runner._cached_bytes,
@@ -1241,11 +1253,13 @@ def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None
     return res, finals, trainer
 
 
-def check_cli_run(res, rounds, trained_per_round=None, with_auc=True):
+def check_cli_run(res, rounds, trained_per_round=None, with_auc=True, fenced=False):
     """What every CLI path must show: how many clients each round trains
     (all of them in round 0; by default the FairLoRA launchers' 3 and then
     int(0.8 * 3)), finite losses and metrics (an AUC per round where the
-    branch reports one), finite final weights, the expected launches."""
+    branch reports one), finite final weights, the expected launches.
+    ``fenced``: rounds run under FAIRFEDMED_TIMING=1 (see
+    :func:`check_parallel_rounds`)."""
     if trained_per_round is None:
         trained_per_round = (CLI_SITES, int(0.8 * CLI_SITES))[:rounds]
     trained = res["trained_clients"]
@@ -1257,7 +1271,7 @@ def check_cli_run(res, rounds, trained_per_round=None, with_auc=True):
                               or not all(np.isfinite(s["loss"]) for s in res["steps"])):
         raise AssertionError(f"non-finite or missing losses: {res['steps']}")
     if "rounds" in res:  # the client-parallel rounds
-        check_parallel_rounds(res, rounds)
+        check_parallel_rounds(res, rounds, fenced)
     if len(res["acc"]) != rounds or len(res["auc"]) != (rounds if with_auc else 0) \
             or not np.isfinite(res["acc"] + res["auc"]).all():
         raise AssertionError(f"non-finite or missing metrics: {res['acc']} {res['auc']}")
@@ -1268,11 +1282,12 @@ def check_cli_run(res, rounds, trained_per_round=None, with_auc=True):
                              f"{res['expected_launches']}")
 
 
-def check_parallel_rounds(res, rounds):
+def check_parallel_rounds(res, rounds, fenced=False):
     """The client-parallel rounds: one blocking fetch per round (the one
     call of the resolve half and its evaluation that waits for the device),
     and no such call in the dispatch half of a round after the first (round
-    0 fills the device caches)."""
+    0 fills the device caches), unless ``fenced``: the FAIRFEDMED_TIMING=1
+    lines wait for the device in the dispatch half on purpose."""
     if res["fetches"] != rounds or len(res["rounds"]) != rounds:
         raise AssertionError(f"{res['fetches']} blocking fetches in {len(res['rounds'])} "
                              f"rounds, expected one in each of {rounds}")
@@ -1280,7 +1295,7 @@ def check_parallel_rounds(res, rounds):
         if len(r["resolve_syncs"]) != 1:
             raise AssertionError(f"round {r['round']}'s resolve waited for the device "
                                  f"{len(r['resolve_syncs'])} times: {r['resolve_syncs'][:20]}")
-        if r["round"] >= 1 and r["deferred"] and r["dispatch_syncs"]:
+        if not fenced and r["round"] >= 1 and r["deferred"] and r["dispatch_syncs"]:
             raise AssertionError(f"round {r['round']}'s dispatch waited for the device: "
                                  f"{r['dispatch_syncs'][:20]}")
 
@@ -1620,6 +1635,8 @@ def parallel_cli_path(dev):
     res, _, _, _ = _parallel_run("parallel_cli_path", SCRIPT, SLO_ROOT, 2, dev)
     emit(res)
     check_cli_run(res, 2)
+    PARALLEL_WALLS["parallel_cli_path"] = {"launches": res["launches"],
+                                           "walls": _round_walls(res)}
     if res["cache_dtypes"] != ["uint8"] or res["cached_clients"]["train"] != [0, 1, 2]:
         raise AssertionError(f"SLO caches: {res['cache_dtypes']} {res['cached_clients']}")
     return res["launches"]
@@ -2547,7 +2564,120 @@ def train_cli_path(dev):
 
 
 # --------------------------------------------------------------------------- #
-# phase 12: the client-parallel rounds over several ranks
+# phase 12: the FAIRFEDMED_TIMING lines
+# --------------------------------------------------------------------------- #
+
+# the JAX runner's [timing] round lines, in its order (fairfedmed_tpu/fed/
+# parallel_driver.py:460-600, :929-972)
+TIMING_LABELS = ("batch assembly", "device_put", "train program", "aggregate+scatter",
+                 "eval assemble+dispatch", "metrics fetch", "eval logits fetch",
+                 "eval host metrics")
+BUILD_STAMPS = ("clip_bundle:params_cast_done", "build:clip_bundle_done",
+                "prompt_learner:tokenizer_ready", "prompt_learner:gather_dispatched",
+                "prompt_learner:rows_fetched", "build:prompt_learner_done",
+                "build:lora_init_done", "build:opt_init_done")
+TIMING_SLACK = 1.05  # the labels of a round sum to at most its wall time plus 5%
+PARALLEL_WALLS = {}  # parallel_cli_path's launches and round wall times, for timing_path
+
+
+class _TeeText(io.StringIO):
+    """A text stream kept in memory and written through to ``other``."""
+
+    def __init__(self, other):
+        super().__init__()
+        self.other = other
+
+    def write(self, s):
+        self.other.write(s)
+        return super().write(s)
+
+
+def _round_walls(res) -> list:
+    """Per round the host seconds of its dispatch, resolve and evaluation."""
+    return [r["dispatch_s"] + r["resolve_s"] + (r["eval_s"] or 0.0) for r in res["rounds"]]
+
+
+def _timed_run(phase, script, data_root, rounds, dev):
+    """A launcher's parallel rounds under FAIRFEDMED_TIMING=1, with what
+    they print: per round the seconds of each [timing] label (the k-th line
+    of a label is round k's: deferral prints round k+1's dispatch lines
+    before round k's fetch), its wall time, and the stamps."""
+    err = _TeeText(sys.stderr)
+    prev = os.environ.get("FAIRFEDMED_TIMING")
+    os.environ["FAIRFEDMED_TIMING"] = "1"
+    try:
+        with contextlib.redirect_stderr(err):
+            res, _, _, _ = _parallel_run(phase, script, data_root, rounds, dev)
+    finally:
+        if prev is None:
+            os.environ.pop("FAIRFEDMED_TIMING")
+        else:
+            os.environ["FAIRFEDMED_TIMING"] = prev
+    with open(os.path.join(REPO, "build", f"chip_smoke_{phase}_console.txt")) as f:
+        lines = re.findall(r"^\[timing\] (.+): (\S+)s$", f.read(), re.M)
+    stamps = re.findall(r"^\[timing\] (.+)$", err.getvalue(), re.M)
+    labels = [re.sub(r" \+\S+s$", "", s) for s in stamps]
+    at = {label: [i for i, (lb, _) in enumerate(lines) if lb == label] for label in TIMING_LABELS}
+    counts = {label: len(at[label]) for label in TIMING_LABELS}
+    if set(counts.values()) != {rounds} or len(lines) != rounds * len(TIMING_LABELS):
+        raise AssertionError(f"{phase}: [timing] lines per label {counts}, expected {rounds} "
+                             f"each: {lines}")
+    walls, out = _round_walls(res), []
+    for k in range(rounds):
+        pos = [at[label][k] for label in TIMING_LABELS]
+        secs = {label: float(lines[at[label][k]][1]) for label in TIMING_LABELS}
+        if pos != sorted(pos):
+            raise AssertionError(f"{phase}: round {k}'s labels out of the JAX order: {lines}")
+        if not all(math.isfinite(s) and s >= 0 for s in secs.values()):
+            raise AssertionError(f"{phase}: round {k}: {secs}")
+        total = sum(secs.values())
+        if total > walls[k] * TIMING_SLACK:
+            raise AssertionError(f"{phase}: round {k}'s labels sum to {total} s, its wall time "
+                                 f"is {walls[k]} s")
+        out.append({"round": k, "seconds": secs, "labels_sum_s": total, "wall_s": walls[k],
+                    **{f"{key}_s": res["rounds"][k][f"{key}_s"]
+                       for key in ("dispatch", "resolve", "eval")}})
+    want = {**{s: 1 for s in BUILD_STAMPS}, "eval:dispatch_start": rounds,
+            **{f"round:start epoch={k}": 1 for k in range(rounds)}}
+    got = {s: labels.count(s) for s in want}
+    decoded = sorted(int(m) for s in labels
+                     for m in re.findall(r"^device_cache:decode_start client=(\d+)$", s))
+    if got != want or decoded != list(range(CLI_SITES)):
+        raise AssertionError(f"{phase}: stamps {got} (expected {want}), decoded {decoded}: "
+                             f"{stamps}")
+    # the other checks of the launcher's parallel rounds; the fences of the
+    # timing lines wait for the device inside the dispatch half, so only the
+    # dispatch half's no-wait check is left out: the resolve half still waits
+    # once, in its fetch
+    check_cli_run(res, rounds, fenced=True)
+    return {"run": phase, "argv": res["argv"], "rounds": out, "stamps": stamps,
+            "launches": res["launches"], "peak_mem_gib": res["peak_mem_gib"],
+            "main_s": res["main_s"]}
+
+
+def timing_path(dev):
+    """The FairLoRA launcher's parallel rounds under FAIRFEDMED_TIMING=1:
+    cli_path's SLO fixture (ViT-B/16, bf16, 3 sites), 2 rounds, then
+    oct_path's fixture, 1 round (round 0 decodes every volume).  Every round
+    prints every JAX label in the JAX order, each build stamp appears once
+    per trainer build, every time is finite and >= 0, a round's labels sum
+    to at most its wall time plus 5%, and the SLO run launches the kernels
+    as often as parallel_cli_path (timing adds fences, no launch)."""
+    runs = [_timed_run("timing_slo", SCRIPT, SLO_ROOT, 2, dev),
+            _timed_run("timing_oct", OCT_SCRIPT, OCT_ROOT, 1, dev)]
+    ref = PARALLEL_WALLS.get("parallel_cli_path")
+    if ref is not None:
+        runs[0]["parallel_cli_path_wall_s"] = ref["walls"]
+        if runs[0]["launches"] != ref["launches"]:
+            raise AssertionError(f"timing_path launched {runs[0]['launches']}, "
+                                 f"parallel_cli_path {ref['launches']}")
+    total = {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
+    emit({"phase": "timing_path", "runs": runs, "slack": TIMING_SLACK, "launches": total})
+    return total
+
+
+# --------------------------------------------------------------------------- #
+# phase 13: the client-parallel rounds over several ranks
 # --------------------------------------------------------------------------- #
 
 DIST_DIR = os.path.join(REPO, "build", "chip_smoke_dist")
@@ -2816,7 +2946,7 @@ PATHS = ("main_path", "cli_path", "oct_path", "rn50_path", "rn50_oct_path", "ot_
          "parallel_oct_path", "parallel_rn50_path", "parallel_branches", "parallel_equiv",
          "chexmimic_path", "parallel_chexmimic", "cifar_path", "caltech_path",
          "caltech_vit_parallel", "office_path", "resume_path", "baseline_path",
-         "train_cli_path", "dist_path")
+         "train_cli_path", "timing_path", "dist_path")
 
 
 def kernels_line(rows, launches):
@@ -2861,9 +2991,11 @@ def kernels_line(rows, launches):
 
 def _ensure_fixtures(names):
     """The fixtures the named phases read but an unselected phase writes."""
-    if any(n in names for n in ("resume_path", "baseline_path", "train_cli_path", "dist_path")) \
-            and "cli_path" not in names:
+    if any(n in names for n in ("resume_path", "baseline_path", "train_cli_path", "timing_path",
+                                "dist_path")) and "cli_path" not in names:
         _write_fixture(SLO_ROOT)
+    if "timing_path" in names and "oct_path" not in names:
+        _write_fixture(OCT_ROOT, n_train=OCT_TRAIN, n_test=OCT_TEST, modality="oct_bscans")
     if "baseline_path" in names and "cifar_path" not in names:
         shutil.rmtree(CIFAR_ROOT, ignore_errors=True)
         write_cifar_fixture(CIFAR_ROOT, "cifar10")

@@ -73,6 +73,7 @@ import torch.distributed as dist
 
 from ..core.mesh import build_mesh
 from ..train.checkpoint import check_like, latest_step, load_pytree, save_pytree
+from ..utils.profiling import PhaseTimer, stamp
 from . import dist as fdist
 from .aggregate import _freqs
 from .parallel import (apply_shared_half_s, client_weighted_mean, ema_blend, personalize,
@@ -213,16 +214,19 @@ class ParallelRoundRunner:
         if idx in self._data_cache:  # on the device, or refused (None)
             return self._data_cache[idx] is not None
         if idx not in self._train_host:
+            stamp(f"device_cache:decode_start client={idx}")
             decoded = self._decode_loader(self.trainer.fed_train_loader_x_dict[idx])
             if decoded is None:
                 self._data_cache[idx] = None
                 return False
+            stamp(f"device_cache:decode_done client={idx} ({decoded[0].nbytes >> 20} MiB)")
             self._cached_bytes += decoded[0].nbytes
             self._train_host[idx] = decoded
         if upload:
             imgs, labels, attrs = self._train_host.pop(idx)
             cache = {"img": self._to_device(imgs),
                      "label": self._to_device(labels.astype(np.int64))}
+            stamp(f"device_cache:push_done client={idx}")
             if self._attr_col is not None:
                 cache["attr"] = self._to_device(attrs[:, self._attr_col].astype(np.int64))
             self._data_cache[idx] = cache
@@ -285,6 +289,7 @@ class ParallelRoundRunner:
                 for i in range(1, n):
                     it = u8_fn(i)
                     if it is None:  # a mixed set: keep the uint8 prefix, go on in float
+                        stamp(f"device_cache:u8_fallback at item {i}/{n}")
                         items, fb_start, u8_items = u8_items, i, None
                         break
                     u8_items.append(it)
@@ -420,10 +425,23 @@ class ParallelRoundRunner:
         ``eval_users`` the round's evaluation is enqueued too.  Returns the
         per-step metrics [m, S, 3] after the round's one fetch, or with
         ``deferred`` a handle for :meth:`resolve_round`, having made no
-        blocking call once the caches are filled."""
+        blocking call once the caches are filled.
+
+        Under ``FAIRFEDMED_TIMING=1`` rank 0 prints the JAX runner's phase
+        lines, fenced as there (``utils/profiling.py:PhaseTimer``).  The
+        batches here are per-step streams, so on the host assembly path
+        part of the assembly and of the copies runs inside the step loop.
+        ``batch assembly``: the LR draws, the cache decode and upload
+        calls, the permutations or the drained loaders; ``device_put``: the
+        wait for those copies; ``train program``: every own client's steps,
+        with their per-step batch gathers (and host batches' copies);
+        ``aggregate+scatter``: the gather over ranks, the aggregation and
+        the optimizer-state scatter."""
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         idxs_users = [int(i) for i in idxs_users]
+        stamp(f"round:start epoch={epoch}")
+        timer = PhaseTimer(self.device)
         m = len(idxs_users)
         trainer = self.trainer
 
@@ -440,6 +458,8 @@ class ParallelRoundRunner:
         streams, n_steps = self._round_batches_device(idxs_users, own, rows)
         if streams is None:
             streams, n_steps = self._round_batches(idxs_users, own, rows)
+        timer.lap("batch assembly")
+        timer.lap("device_put", fence=True)
         s_max = max(n_steps)
         step = self._local_step(fedprox_mu, mesh.data_group)
         ctx_global = (self.global_t["prompt_learner.ctx"].float()
@@ -457,6 +477,7 @@ class ParallelRoundRunner:
             trained_t.append(t)
             trained_o.append(o)
             metrics.append(torch.stack(ms))
+        timer.lap("train program", fence=True)
         if self.world > 1:
             trained_t, trained_o, metrics = self._gather_round(mesh, trained_t, trained_o,
                                                                metrics, s_max)
@@ -491,6 +512,7 @@ class ParallelRoundRunner:
         # trained clients keep their optimizer state across rounds
         self.stacked_o = {k: v.index_copy(0, idx_dev, trained_o[k].to(v.dtype))
                           for k, v in self.stacked_o.items()}
+        timer.lap("aggregate+scatter", fence=True)
 
         digests = None
         if self.world > 1:  # every rank's digest of the round, fetched with the metrics
@@ -522,6 +544,7 @@ class ParallelRoundRunner:
         the enqueued evaluation logits together, then the per-client lines,
         then the round checkpoint when one is due (its own one fetch).  The
         fetched evaluation waits for :meth:`parallel_eval`."""
+        timer = PhaseTimer()
         pend = handle["pending_eval"]
         digests = handle["digests"]
         fetched = self._fetch(handle["metrics"],
@@ -533,6 +556,7 @@ class ParallelRoundRunner:
         if digests is not None:
             self._check_digests(handle["epoch"], fetched[-1])
         self._pending_eval = pend
+        timer.lap("metrics fetch")
         for j, idx in enumerate(handle["idxs_users"]):
             nv = max(float(ms[j, :, 1].sum()), 1.0)
             print(f"client {idx}: steps {int(handle['n_steps'][j])} "
@@ -699,6 +723,8 @@ class ParallelRoundRunner:
         each client padded to the same number of batches (the loader's
         pad-final rule within a client).  None when a client has no
         cache."""
+        timer = PhaseTimer()
+        stamp("eval:dispatch_start")
         caches = [self._ensure_eval_cache(i) for i in idxs_users]
         if not caches or any(c is None for c in caches):
             return None
@@ -729,6 +755,7 @@ class ParallelRoundRunner:
                 attr = caches[j]["attr_dev"].index_select(0, sel) if with_attr else None
                 logits.append(self._infer(params, caches[j]["img"].index_select(0, sel), attr))
         logits = torch.stack(logits)
+        timer.lap("eval assemble+dispatch")
         return {"idxs": list(idxs_users), "caches": caches, "mats": mats, "n_valids": n_valids,
                 "logits": logits.reshape((len(idxs_users), s_max) + tuple(logits.shape[1:]))}
 
@@ -748,9 +775,11 @@ class ParallelRoundRunner:
             ctx = self._eval_dispatch(idxs_users)
         if ctx is None:
             return None
+        timer = PhaseTimer()
         logits = ctx.get("logits_host")
         if logits is None:
             (logits,) = self._fetch(ctx["logits"])
+        timer.lap("eval logits fetch")
         trainer = self.trainer
         results = []
         for j, idx in enumerate(idxs_users):
@@ -767,6 +796,7 @@ class ParallelRoundRunner:
                 if np.isscalar(v):
                     trainer.write_scalar(f"test/{k}/{idx}", v, current_epoch)
             results.append(list(res.values()))
+        timer.lap("eval host metrics")
         return results
 
     # ------------------------------------------------------------- round checkpoints

@@ -15,6 +15,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from ..utils.profiling import stamp
 from . import tokenizer as tk
 from .clip_model import CLIPConfig
 
@@ -44,9 +45,14 @@ def init_prompt_learner(gen: torch.Generator, classnames: Sequence[str],
     ctx_dim = token_embedding.shape[1]
     dev = token_embedding.device
     tok = tk.get_tokenizer()
+    stamp("prompt_learner:tokenizer_ready")
 
     def rows(ids: np.ndarray) -> torch.Tensor:
-        return token_embedding[torch.as_tensor(ids, device=dev).long()].float()
+        out = token_embedding[torch.as_tensor(ids, device=dev).long()]
+        stamp("prompt_learner:gather_dispatched")
+        out = out.float()
+        stamp("prompt_learner:rows_fetched")
+        return out
 
     if ctx_init:
         words = str(ctx_init).replace("_", " ")

@@ -20,6 +20,7 @@ from ..core.precision import Policy, policy_from_prec
 from ..models import converter, resnet_clip
 from ..models.clip_model import (PRESETS, CLIPConfig, init_clip_params, init_text_params,
                                  tree_map)
+from ..utils.profiling import stamp
 
 TEST_PRESETS = {
     "test-vit": CLIPConfig(
@@ -88,6 +89,7 @@ def _load_resnet_bundle(cfg, name: str, policy: Policy, device) -> CLIPBundle:
     params["visual"] = tree_map(lambda a: a.to(device, policy.param_dtype), visual)
     params["logit_scale"] = params["logit_scale"].float()
     bn, stats = (tree_map(lambda a: a.to(device), t) for t in (bn, stats))
+    stamp("clip_bundle:params_cast_done")
     return CLIPBundle(params=params, clip_cfg=clip_cfg, policy=policy, pretrained=False,
                       backbone_type="resnet", rn_cfg=rn_cfg, visual_bn=bn, visual_stats=stats)
 
@@ -113,6 +115,7 @@ def load_clip_bundle(cfg, prec: str, device=None) -> CLIPBundle:
             print(f"Loading CLIP (backbone: {name}) from {ckpt}")
             tree, clip_cfg = converter.convert_vit_clip(converter.load_torch_state_dict(ckpt))
             params = converter.params_from_numpy(tree, device, policy.param_dtype)
+            stamp("clip_bundle:params_cast_done")
             return CLIPBundle(params=params, clip_cfg=clip_cfg, policy=policy, pretrained=True)
         clip_cfg = PRESETS.get(name)
         if clip_cfg is None:
@@ -124,6 +127,7 @@ def load_clip_bundle(cfg, prec: str, device=None) -> CLIPBundle:
     gen = torch.Generator().manual_seed(cfg.SEED if cfg.SEED >= 0 else 0)
     params = init_clip_params(gen, clip_cfg, dtype=policy.param_dtype, device=device)
     params["logit_scale"] = params["logit_scale"].float()
+    stamp("clip_bundle:params_cast_done")
     return CLIPBundle(params=params, clip_cfg=clip_cfg, policy=policy, pretrained=False)
 
 

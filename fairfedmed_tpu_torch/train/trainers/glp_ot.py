@@ -44,6 +44,7 @@ from ...models.clip_model import l2_normalize, pool_index, text_encode, vit_enco
 from ...models.prompt_learner import assemble_prompts, init_prompt_learner
 from ...models.resnet_clip import resnet_encode
 from ...ops.sinkhorn import entropic_cot, sinkhorn
+from ...utils.profiling import stamp
 from ...utils.registry import DATASET_REGISTRY, TRAINER_REGISTRY
 from ..clip_common import (accuracy_from_logits, cross_entropy, fairness_confidence_loss,
                            fedprox_term, load_clip_bundle)
@@ -143,10 +144,12 @@ class GLPOTBase(TrainerX):
         # CPU draws: the same seed gives the same trainer on every device
         gen = torch.Generator().manual_seed(cfg.SEED if cfg.SEED >= 0 else 0)
         print("Building custom CLIP")
+        stamp("build:clip_bundle_done")
         pl_params, self.prompt_state = init_prompt_learner(
             gen, classnames, bundle.params["text"]["token_embedding"], bundle.clip_cfg,
             n_ctx=t.N_CTX, n_prompts=t.N, ctx_init=t.CTX_INIT, csc=t.CSC,
             class_token_position=t.CLASS_TOKEN_POSITION)
+        stamp("build:prompt_learner_done")
         trainable = {"prompt_learner": pl_params}
 
         # Without LoRA, UNFREEZE_IMAGE_ENCODER trains the ViT's ln_pre, the
@@ -215,6 +218,7 @@ class GLPOTBase(TrainerX):
                     name: adapter(ed, rn.output_dim if name == "c_proj" else ed, "LoRA")
                     for name in ATTNPOOL_PROJ}
 
+        stamp("build:lora_init_done")
         # 3D slice projector (GLP_OT_SVLoRA.py:584-595)
         self.is_3d_input = cfg.DATASET.MODALITY_TYPE in MODALITY_3D
         if self.is_3d_input:
@@ -240,6 +244,7 @@ class GLPOTBase(TrainerX):
         self.lr_sched = build_lr_scheduler(cfg.OPTIM)
         # start at the schedule's epoch-0 LR (warmup)
         self.optimizer = build_optimizer(_leaves(self.trainable), cfg.OPTIM, self.lr_sched.lr(0))
+        stamp("build:opt_init_done")
         self.parallel_optimizer = FunctionalOptimizer(cfg.OPTIM)
         single = bool(getattr(lc, "SINGLE_OPT_STEP", False))
         self.opt_steps_per_batch = 1 if single or not lc.UNFREEZE_IMAGE_ENCODER else 2

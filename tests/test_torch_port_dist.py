@@ -138,9 +138,10 @@ def log_metrics(out_dir):
 
 
 def log_lines(out_dir):
-    """The log without the lines that name the output directory or the time."""
+    """The log without the lines that name the output directory or the time
+    (``Elapsed``, the ``FAIRFEDMED_TIMING`` lines)."""
     return [line for line in (Path(out_dir) / "log.txt").read_text().splitlines()
-            if str(out_dir) not in line and not line.startswith("Elapsed")]
+            if str(out_dir) not in line and not line.startswith(("Elapsed", "[timing]"))]
 
 
 def finals(out_dir, n_users):
@@ -196,12 +197,18 @@ def fixture_root(tmp_path_factory):
 
 
 def check_two_ranks(fixture_root, tmp_path, monkeypatch, n_users, extra, tol):
-    """FairLoRA on 1 and 2 ranks and through the JAX CLI."""
+    """FairLoRA on 1 and 2 ranks and through the JAX CLI; the ranks run
+    under ``FAIRFEDMED_TIMING=1``, where rank 0 alone prints the round lines
+    and the stamps."""
     extra = ["--num_users", str(n_users), *extra]
     res, captured = run_jax(fairlora_argv(fixture_root, tmp_path / "jax", extra), tmp_path,
                             monkeypatch)
     for name, n in (("one", 1), ("two", 2)):
-        torchrun(n, fairlora_argv(fixture_root, tmp_path / name, extra), captured)
+        out = torchrun(n, fairlora_argv(fixture_root, tmp_path / name, extra), captured,
+                       env={"FAIRFEDMED_TIMING": "1"})
+        # 2 rounds: one line of each phase per round, one stamp per round
+        assert out.stdout.count("[timing] batch assembly:") == 2, out.stdout[-4000:]
+        assert out.stderr.count("[timing] round:start epoch=0") == 1, out.stderr[-4000:]
     one, two = (log_metrics(tmp_path / n) for n in ("one", "two"))
     assert len(one["acc"]) == len(one["auc"]) == 2
     if tol == 0:
