@@ -7,12 +7,14 @@ Each ROOT is a directory that holds a ``fairfedmed_tpu_torch`` package: the
 repository root, or an older commit's package unpacked with ``git archive``
 into a git-ignored directory such as ``build/``.  The roots run one after
 another, each in a process of its own that builds that package's kernels
-(into ``ROOT/build``) and times them with ``chip_smoke.py``'s timers at its
-kernel shapes in bf16: device time warm and L2-cold, CUDA events and host
-enqueue time, beside the plain versions and ``scaled_dot_product_attention``.
-Give the roots in mirrored order (A B B A) to see the drift within one call.
-Prints one JSON line per turn, a summary line and the ``nvidia-smi``
-name/power line, and writes every turn to ``build/attention_ab.json``.
+(into ``ROOT/build``) and times them with ``chip_smoke.py``'s timers at
+every shape of its ``kernel_shapes()`` in bf16: device time warm and
+L2-cold, CUDA events and host enqueue time per call, beside the plain
+versions and ``scaled_dot_product_attention``.  Give the roots in mirrored
+order (A B B A) to see the drift within one call.  Prints one JSON line per
+turn, one summary line per shape (every turn's kernel, host enqueue and
+SDPA times), the ``nvidia-smi`` name/power line, and writes every turn to
+``build/attention_ab.json``.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ def worker(root: str):
         raise RuntimeError(f"{cs.A.__file__} is not under {root}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for shape, (n, length, dh, causal) in cs.KERNEL_SHAPES.items():
+    for shape, (n, length, dh, causal) in cs.kernel_shapes().items():
         mask = torch.triu(torch.full((length, length), float("-inf"), device="cuda"), 1) \
             if causal else None
         q, k, v, do = (torch.randn(n, length, dh, device="cuda", generator=gen)
@@ -58,10 +60,11 @@ def main(roots) -> int:
         print(json.dumps(turns[-1]), flush=True)
     keys = ("kernel_fwd_ms", "kernel_fwd_ms_cold", "kernel_fwd_ms_events", "kernel_fwd_host_ms",
             "kernel_bwd_ms", "kernel_bwd_ms_cold", "kernel_bwd_ms_events", "kernel_bwd_host_ms",
-            "sdpa_fwd_ms", "sdpa_fwd_ms_cold", "sdpa_bwd_ms", "sdpa_bwd_ms_cold")
-    summary = [{"root": os.path.relpath(t["root"], HERE),
-                **{k: t["rows"]["vision_train"][k] for k in keys}} for t in turns]
-    print(json.dumps({"vision_train": summary}))
+            "sdpa_fwd_ms", "sdpa_fwd_ms_cold", "sdpa_bwd_ms", "sdpa_bwd_ms_cold", "plain_fwd_ms",
+            "plain_bwd_ms")
+    for shape in turns[0]["rows"]:
+        print(json.dumps({shape: [{"root": os.path.relpath(t["root"], HERE),
+                                   **{k: t["rows"][shape][k] for k in keys}} for t in turns]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip())

@@ -8,12 +8,16 @@ Phases, each printing one JSON line:
 1. ``card``: the card, its power limit, the versions, and the time to build
    the CUDA kernels from ``fairfedmed_tpu_torch/csrc`` (one nvcc per source,
    all at once).
-2. ``kernel_checks``: each attention kernel (forward, backward) against its
-   plain PyTorch version at the paths' shapes (the SLO and OCT vision
-   batches, the text tower, and the widest text shape: PromptFL on
-   CIFAR-100, 100 classes x 8 heads at the EOT-cut length), fp32 (TF32 off)
-   and bf16, with the max error
-   beside its tolerance; times of the kernel, the plain version and
+2. ``wgmma_check``: the warpgroup products the attention kernels issue,
+   one at a time (``csrc/wgmma_check.cu``: A from shared memory and from
+   registers, B K-major and MN-major, N = 64, 32, 16 and the head width,
+   the swizzle of each head width 16, 32, 64), against ``torch.matmul`` on
+   the card.  Then ``kernel_checks``: each attention kernel (forward,
+   backward) against its plain PyTorch version at the paths' shapes (the
+   SLO and OCT vision batches, the text tower, and the widest text shapes:
+   PromptFL on CIFAR-100 and the CLI's default run on Caltech101, at their
+   EOT-cut lengths), fp32 (TF32 off) and bf16, with the max error beside
+   its tolerance; times of the kernel, the plain version and
    ``scaled_dot_product_attention`` (a yardstick the port never calls).
    Times are device time from torch.profiler (the kernels' summed
    durations), warm (one input set, resident in L2) and L2-cold (rotating
@@ -454,6 +458,37 @@ def kernel_shapes() -> dict:
                              text_length(CALTECH_CLASSES, CALTECH_N_CTX), 64, True)}
 
 
+WGMMA_TOL = 1e-4  # relative to the largest |C|: fp32 sums of exact bf16 products
+# (modes 0-2, 4) or of ~16-bit high + low parts (mode 3); a wrong descriptor,
+# swizzle or fragment layout is off by O(1)
+
+
+def check_wgmma(dev):
+    """Each wgmma mode of ``A.WGMMA_CHECK_MODES`` at head width 16, 32 and 64
+    against ``torch.matmul`` on the card (TF32 off); raises on a miss."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+    for d in (16, 32, 64):
+        for mode in sorted(A.WGMMA_CHECK_MODES):
+            shape_a = {2: (64, 64), 3: (64, 32)}.get(mode, (64, d))
+            a = torch.randn(*shape_a, device=dev, generator=gen)
+            a = a if mode == 3 else a.to(torch.bfloat16)
+            b = torch.randn(64, d, device=dev, generator=gen).to(torch.bfloat16)
+            got = A.wgmma_check(a, b, mode)
+            torch.cuda.synchronize()
+            ref = torch.matmul(*{0: (a.float(), b.float().T), 1: (a.float(), b[32:].float().T),
+                                 2: (a.float(), b.float()), 3: (a, b[32:].float()),
+                                 4: (a.float(), b[16:32].float().T)}[mode])
+            err = (got - ref).abs().max().item()
+            tol = WGMMA_TOL * max(1.0, ref.abs().max().item())
+            if not err <= tol:
+                raise AssertionError(f"wgmma check d={d} mode {mode} "
+                                     f"({A.WGMMA_CHECK_MODES[mode]}): max error {err} > {tol}")
+            rows.append({"d": d, "mode": mode, "max_abs_err": err, "tol": tol})
+    return rows
+
+
 def check_kernels(dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -485,6 +520,10 @@ def check_kernels(dev):
                    "bwd_max_abs_err": max(errs[g]["max_abs_err"] for g in ("dq", "dk", "dv")),
                    "errors": errs}
             if dtype == torch.bfloat16:  # the main path's type: time it
+                for kind in ("fwd", "bwd"):  # the launch of the design the plan picks
+                    row[f"launch_{kind}"] = dict(
+                        A.launch_info(kind, n, length, dh),
+                        kernel=A.launch_plan(kind, n, length, dh)["route"])
                 row.update(time_attention(q, k, v, do, mask, o, lse))
                 row.update(time_attention_cold(n, length, dh, dtype, mask, gen))
                 bounds = _bounds_ms(n, length, dh, dtype, causal)
@@ -564,6 +603,18 @@ def time_attention_cold(n, length, dh, dtype, mask, gen):
             "kernel_bwd_ms_cold": device_ms([bwd(s) for s in sets]),
             "sdpa_fwd_ms_cold": device_ms([sdpa_fwd(s) for s in sets]),
             "sdpa_bwd_ms_cold": device_ms([sdpa_bwd(s) for s in sets])}
+
+
+def sass_counts() -> dict:
+    """Per built library, the tensor-core instructions in its machine code
+    (``cuobjdump -sass``): HGMMA (wgmma) and HMMA (mma.sync)."""
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    out = {}
+    for name in _build.SOURCES:
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(name))], capture_output=True,
+                              text=True, check=True, timeout=120).stdout
+        out[name] = {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HGMMA", "HMMA")}
+    return out
 
 
 def ptxas_kernel(log: str, entry: str) -> dict:
@@ -2953,7 +3004,9 @@ def kernels_line(rows, launches):
     """The two kernels in bf16 at the vision training shape, the shape and
     type the main path spends most of its attention time on, and at the
     CLI's default run's text shape (GLP_OT on Caltech101), with the
-    tensor-core kernels' resources: registers and spills from ptxas, shared
+    tensor-core kernels' resources (``kernel``: the packed short-row kernel
+    or the warpgroup one, as ``launch_plan`` picks): registers and spills
+    from ptxas of the instance that runs, shared
     memory and resident blocks from the CUDA runtime, waves = blocks / (SMs x
     resident blocks per SM), and bound share = bound / cold time.
     ``launches`` is main_path's count, ``launches_<path>`` every other
@@ -2970,8 +3023,14 @@ def kernels_line(rows, launches):
             name = f"attention_{kind}"
             log = _build.library_path(name).with_suffix(".log").read_text()
             info = A.launch_info(kind, n, length, dh)
+            plan = A.launch_plan(kind, n, length, dh, sms)
+            # the instance that runs: the packed kernel, or the warpgroup one
+            # (forward: by the last key tile's 16-key steps; backward: one launch)
+            entry = (f"{name}_packed_kernelILi{dh}E" if plan["route"] == "packed" else
+                     f"{name}_wgmma_kernelILi{dh}ELi{((length - 1) % 64) // 16 + 1}E"
+                     if kind == "fwd" else f"{name}_wgmma_kernelILi{dh}ELi0E")
             out.append(dict(
-                ptxas_kernel(log, f"{name}_mma_kernelILi{dh}E"), name=name, route="cuda",
+                ptxas_kernel(log, entry), name=name, route="cuda", kernel=plan["route"],
                 source=f"fairfedmed_tpu_torch/csrc/{name}.cu", replaces=tpu_line,
                 shape=shape, n_L_dh=[n, length, dh], causal=row["causal"],
                 launches=launches["main_path"][name],
@@ -2985,6 +3044,7 @@ def kernels_line(rows, launches):
                 bound_share=row[f"{kind}_bound_ms"] / row[f"kernel_{kind}_ms_cold"],
                 smem_bytes=info["smem_bytes"], threads=info["threads"],
                 blocks=info["blocks"], blocks_per_sm=info["blocks_per_sm"],
+                slices_per_block=info["slices_per_block"],
                 waves=info["blocks"] / (sms * info["blocks_per_sm"])))
     return {"kernels": out}
 
@@ -3029,8 +3089,10 @@ def main(argv=()):
     emit({"phase": "card", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "device": torch.cuda.get_device_name(0), "kernel_build_s": build_s,
-          "kernels_built": sorted(logs), "ptxas_spill_lines": spills})
+          "kernels_built": sorted(logs), "ptxas_spill_lines": spills,
+          "sass_tensor_instructions": sass_counts()})
 
+    emit({"phase": "wgmma_check", "modes": A.WGMMA_CHECK_MODES, "rows": check_wgmma(dev)})
     rows = check_kernels(dev)
     emit({"phase": "kernel_checks", "rows": rows, "profiler_misses": PROFILER_MISSES})
     emit(small_reference(dev))

@@ -11,14 +11,17 @@ the top of each source.  In short: at CLIP's lengths (197 / <= 77 tokens,
 head width 64) attention is memory-bound, so the kernels keep the [L, L]
 scores on chip and move each [L, dh] tensor as few times as they can; the
 forward saves the per-row log-sum-exp so the backward rebuilds P without a
-second softmax pass.  bf16 at head width 16/32/64 (every CLIP tower) runs on
-the tensor cores: the forward is one block per 128 query rows with the
-head's K and V resident in shared memory, the backward one block per
-(batch*head) that holds Q, K, V, dO and O, computes rowsum(dO*O) itself, and
-produces dK/dV and then dQ in one launch without atomics.  Tiles arrive by
-asynchronous copies and feed the tensor cores through ``ldmatrix``.  fp32
-and the other widths run scalar fp32 kernels.  Unlike the TPU kernel, L is
-not padded to 128: the ragged tail is masked inside the kernels.
+second softmax pass, and the backward computes rowsum(dO*O) itself and
+produces dK/dV and dQ without atomics.  bf16 at head width 16/32/64 (every
+CLIP tower) runs on the tensor cores in one of two designs, chosen by
+:func:`launch_plan`: at L <= 64 (the text towers) a block packs several
+(batch*head) slices, one warp per 16 rows, on ``mma.sync``; at L > 64 (the
+vision towers) one block per head holds a warpgroup per 64-row tile and
+runs every product on ``wgmma``, with tiles copied asynchronously into
+swizzled shared memory and completed on mbarriers.  ``csrc/wgmma_check.cu``
+checks those products alone (:func:`wgmma_check`).  fp32 and the other
+widths run scalar fp32 kernels.  Unlike the TPU kernel, L is not padded to
+128: the ragged tail is masked inside the kernels.
 
 :func:`attention_fwd` / :func:`attention_bwd` launch the kernels on CUDA
 tensors and count their launches.  :func:`reference_attention` /
@@ -125,17 +128,118 @@ def attention_bwd(q, k, v, o, lse, do, mask=None):
 attention_bwd.launches = 0
 
 
+PACKED_MAX_LENGTH = 64  # L at or below: the packed kernels (csrc: kPackedMaxL)
+WG_ROWS = 64  # rows of a warpgroup's tile (csrc: kWgRows)
+H100_SMS = 132
+
+
+def launch_plan(kind: str, n: int, length: int, dh: int, sms: int = H100_SMS) -> dict:
+    """How the tensor-core kernel ``kind`` ("fwd" or "bwd") launches for bf16
+    [n, length, dh] (dh in 16, 32, 64) on a card with ``sms`` SMs: the same
+    arithmetic as ``csrc/attention_common.cuh:make_plan``.
+
+    At length <= 64 the packed kernel: ``warps_per_slice`` warps of 16 rows
+    each cover a slice, ``slices_per_block`` slices share a block (about 4
+    warps, and at most n // sms slices, so a small call spreads over the
+    SMs), and shared memory holds the slice's rows rounded up to 16 (Q, K,
+    V forward; K, V, Q, dO and lse / delta backward).  Beyond, the
+    warpgroup kernel: one warpgroup per 64-row tile, up to 4
+    (``tiles_per_block``); the forward's blocks are persistent up to 4
+    tiles (at most ``sms * (4 // tiles)`` blocks, each taking heads in turn
+    with two buffers of shared memory), otherwise there is one block per
+    head and group of 4 tiles; the backward gives a head two blocks, one per
+    phase, when 2 n <= sms, and takes two launches beyond 4 tiles."""
+    if kind not in ("fwd", "bwd") or dh not in (16, 32, 64) or n < 1 or length < 1:
+        raise ValueError(f"no tensor-core plan for {kind} [{n}, {length}, {dh}]")
+    if length <= PACKED_MAX_LENGTH:
+        lp = -(-length // 16) * 16
+        wps = lp // 16
+        spb = max(1, min(4 // wps, n // sms))
+        tile = lp * (dh + 8) * 2
+        smem = spb * 3 * tile if kind == "fwd" else spb * (4 * tile + 2 * lp * 4)
+        return {"route": "packed", "blocks": -(-n // spb), "threads": 32 * wps * spb,
+                "smem_bytes": smem, "slices_per_block": spb, "warps_per_slice": wps,
+                "rows_per_slice": lp, "launches": 1}
+    nt = -(-length // WG_ROWS)
+    slots = min(4, nt)
+    tile = WG_ROWS * dh * 2
+    blocks = n * -(-nt // slots)
+    if kind == "fwd" and nt <= 4:  # persistent blocks (as many as fit), two buffers
+        blocks = min(blocks, sms * (4 // slots))
+        smem = 1024 + 2 * (3 * slots * tile + 8 * (1 + 2 * slots))
+    else:
+        smem = (1024 + 3 * slots * tile + 8 * (1 + 2 * slots) if kind == "fwd"
+                else 1024 + 4 * slots * tile + slots * WG_ROWS * 8 + 8 * 2 * slots)
+    split = kind == "bwd" and nt <= 4 and 2 * n <= sms  # few heads: a block per head and phase
+    return {"route": "wgmma", "blocks": 2 * n if split else blocks, "threads": 128 * slots,
+            "smem_bytes": smem, "slices_per_block": 0, "tiles_per_block": slots,
+            "launches": 2 if kind == "bwd" and nt > 4 else 1, "phase_blocks": split}
+
+
 def launch_info(kind: str, n: int, length: int, dh: int) -> dict:
     """How the tensor-core kernel ``kind`` ("fwd" or "bwd") launches for bf16
     [n, length, dh] (dh in 16, 32, 64), from the CUDA runtime on the current
-    card: blocks, threads per block, shared bytes per block, resident blocks
-    per SM, registers and local (spilled) bytes per thread."""
-    out = (ctypes.c_int * 6)()
+    card: blocks (of each launch), threads per block, shared bytes per block,
+    resident blocks per SM, registers and local (spilled) bytes per thread,
+    slices per block (packed kernel; 0 for the warpgroup kernel) and launches
+    per call."""
+    out = (ctypes.c_int * 8)()
     fn = _build.load(f"attention_{kind}", f"ffm_attention_{kind}_info")
     _raise_on_error(fn(n, length, dh, _DTYPE_CODES[torch.bfloat16], ctypes.addressof(out)),
                     f"attention {kind} info")
-    keys = ("blocks", "threads", "smem_bytes", "blocks_per_sm", "registers", "local_bytes")
+    keys = ("blocks", "threads", "smem_bytes", "blocks_per_sm", "registers", "local_bytes",
+            "slices_per_block", "launches")
     return dict(zip(keys, out))
+
+
+# The wgmma unit check (csrc/wgmma_check.cu): mode -> the product it runs.
+WGMMA_CHECK_MODES = {
+    0: "C[64, 64] = A[64, d] B[64, d]^T, both from shared memory, K-major",
+    1: "C[64, 32] = A[64, d] B[32:64, d]^T, both from shared memory, K-major",
+    2: "C[64, d] = A[64, 64] B[64, d], A (bf16) from registers, B MN-major",
+    3: "C[64, d] = A[64, 32] B[32:64, d], A (fp32) in bf16 high and low parts "
+       "from registers, B MN-major",
+    4: "C[64, 16] = A[64, d] B[16:32, d]^T, both from shared memory, K-major",
+}
+
+
+def wgmma_check_reference(a: torch.Tensor, b: torch.Tensor, mode: int) -> torch.Tensor:
+    """The product that ``wgmma_check`` computes on the card, in fp32."""
+    a, b = a.float(), b.float()
+    if mode == 0:
+        return a @ b.T
+    if mode == 1:
+        return a @ b[32:].T
+    if mode == 2:
+        return a @ b
+    if mode == 3:
+        return a @ b[32:]
+    if mode == 4:
+        return a @ b[16:32].T
+    raise ValueError(f"wgmma check mode {mode} not in {sorted(WGMMA_CHECK_MODES)}")
+
+
+def wgmma_check(a: torch.Tensor, b: torch.Tensor, mode: int) -> torch.Tensor:
+    """One warpgroup product on the card (``WGMMA_CHECK_MODES[mode]``) with
+    the attention kernels' copies, swizzle and descriptors; b is bf16
+    [64, d] (d in 16, 32, 64), a bf16 [64, d] (modes 0, 1, 4), bf16
+    [64, 64] (mode 2) or fp32 [64, 32] (mode 3).  Returns C in fp32."""
+    d = b.shape[1] if b.dim() == 2 else 0
+    want_a = {0: ((64, d), torch.bfloat16), 1: ((64, d), torch.bfloat16),
+              2: ((64, 64), torch.bfloat16), 3: ((64, 32), torch.float32),
+              4: ((64, d), torch.bfloat16)}.get(mode)
+    if want_a is None or d not in (16, 32, 64) or b.shape != (64, d) or \
+            b.dtype != torch.bfloat16 or tuple(a.shape) != want_a[0] or a.dtype != want_a[1]:
+        raise ValueError(f"wgmma check mode {mode}: a {tuple(a.shape)} {a.dtype}, "
+                         f"b {tuple(b.shape)} {b.dtype}")
+    if not (a.is_cuda and b.device == a.device and a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("the wgmma check takes contiguous CUDA tensors on one device")
+    n_out = {0: 64, 1: 32, 4: 16}.get(mode, d)
+    c = torch.empty((64, n_out), device=a.device, dtype=torch.float32)
+    fn = _build.load("wgmma_check")
+    _raise_on_error(fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), d, mode,
+                       torch.cuda.current_stream(a.device).cuda_stream), "wgmma check")
+    return c
 
 
 def reference_attention(q, k, v, mask=None):

@@ -6,11 +6,13 @@ on its own:
 
     python -m pytest --noconftest tests/test_torch_port_kernels.py -q
 
-The bf16 cases at head width 16, 32 and 64 run the tensor-core kernels; fp32
-and the other widths the scalar ones.  Tolerances are relative to the
-largest reference value: fp32 1e-4 (sums in another order), bf16 2e-2
-(outputs rounded once to bf16, 2^-8, and the backward's rowsum(dO*O) taken
-from the rounded output).
+The bf16 cases at head width 16, 32 and 64 run the tensor-core kernels (the
+packed short-row ones at L <= 64, the warpgroup ones beyond); fp32 and the
+other widths the scalar ones.  Tolerances are relative to the largest
+reference value: fp32 1e-4 (sums in another order), bf16 2e-2 (outputs
+rounded once to bf16, 2^-8, and the backward's rowsum(dO*O) taken from the
+rounded output); the wgmma unit check 1e-4 (fp32 sums of exact bf16
+products, or of ~16-bit high + low parts).
 """
 
 import ctypes
@@ -138,7 +140,10 @@ def test_kernel_wrapper_rejects_unsupported_inputs_on_card(cuda_device):
         A.attention_fwd(m, m, m)
 
 
-_LENGTHS = (1, 63, 64, 65, 255, 256, 257, 600)  # 257 and 600 run the ring paths
+# 1-64: the packed kernels; 65 on: the warpgroup ones, whose last key tile runs
+# 1-4 steps of 16 keys (65, 197: 1; 600: 2; 255, 256: 4); 257 and 600 run
+# the ring paths and the backward's two launches
+_LENGTHS = (1, 15, 16, 17, 63, 64, 65, 197, 255, 256, 257, 600)
 
 
 @pytest.mark.gpu
@@ -163,7 +168,7 @@ def test_tensor_core_kernels_across_lengths(cuda_device, length, dh, causal):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("length", [77, 197, 300])
+@pytest.mark.parametrize("length", [16, 24, 77, 197, 300])
 def test_fully_masked_row_gives_zeros(cuda_device, dtype, length):
     q, k, v, do = _qkv(cuda_device, 4, length, 64, dtype, seed=3)
     mask = _causal(length, cuda_device)
@@ -182,7 +187,7 @@ def test_fully_masked_row_gives_zeros(cuda_device, dtype, length):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("length", [197, 600])
+@pytest.mark.parametrize("length", [24, 197, 600])
 def test_backward_is_deterministic(cuda_device, length):
     q, k, v, do = _qkv(cuda_device, 24, length, 64, torch.bfloat16, seed=5)
     o, lse = A.attention_fwd(q, k, v)
@@ -195,12 +200,55 @@ def test_backward_is_deterministic(cuda_device, length):
 
 @pytest.mark.gpu
 def test_launch_info_of_the_tensor_core_kernels(cuda_device):
-    fwd = A.launch_info("fwd", 384, 197, 64)
-    bwd = A.launch_info("bwd", 384, 197, 64)
-    assert fwd["blocks"] == 2 * 384 and fwd["threads"] == 128
-    assert bwd["blocks"] == 384 and bwd["threads"] == 256
-    assert fwd["blocks_per_sm"] >= 1 and bwd["blocks_per_sm"] >= 1
-    for info in (fwd, bwd):
-        assert 0 < info["registers"] <= 255 and info["smem_bytes"] > 0
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for n, length in ((384, 197), (1600, 24), (800, 16), (32, 77), (3, 600), (531, 33)):
+        for kind in ("fwd", "bwd"):
+            info = A.launch_info(kind, n, length, 64)
+            plan = A.launch_plan(kind, n, length, 64, sms)
+            assert {k: info[k] for k in ("blocks", "threads", "smem_bytes", "slices_per_block",
+                                         "launches")} == {
+                k: plan[k] for k in ("blocks", "threads", "smem_bytes", "slices_per_block",
+                                     "launches")}, (kind, n, length)
+            assert info["blocks_per_sm"] >= 1 and 0 < info["registers"] <= 255
+    # short rows: several packed blocks resident per SM, every warp with rows
+    for kind in ("fwd", "bwd"):
+        info = A.launch_info(kind, 1600, 24, 64)
+        assert info["slices_per_block"] == 2 and info["threads"] == 2 * 2 * 32
+        assert info["blocks_per_sm"] > 1
     with pytest.raises(RuntimeError, match="info"):
         A.launch_info("fwd", 4, 16, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(A.WGMMA_CHECK_MODES))
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_wgmma_unit_check_on_card(cuda_device, d, mode):
+    gen = torch.Generator(device=cuda_device).manual_seed(10 * d + mode)
+    a = torch.randn(*{2: (64, 64), 3: (64, 32)}.get(mode, (64, d)), device=cuda_device,
+                    generator=gen)
+    a = a if mode == 3 else a.to(torch.bfloat16)
+    b = torch.randn(64, d, device=cuda_device, generator=gen).to(torch.bfloat16)
+    got = A.wgmma_check(a, b, mode)
+    torch.cuda.synchronize()
+    ref = A.wgmma_check_reference(a, b, mode)
+    assert (got - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", [1, 15, 16, 17, 24, 32])
+def test_packed_kernels_with_a_partial_last_block(cuda_device, length):
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    n = 4 * sms + 3  # the last block holds fewer slices than the others
+    for kind in ("fwd", "bwd"):
+        spb = A.launch_info(kind, n, length, 32)["slices_per_block"]
+        assert spb > 1 and n % spb != 0, (kind, spb)
+    q, k, v, do = _qkv(cuda_device, n, length, 32, torch.bfloat16, seed=length)
+    mask = _causal(length, cuda_device)
+    o, lse = A.attention_fwd(q, k, v, mask)
+    grads = A.attention_bwd(q, k, v, o, lse, do, mask)
+    torch.cuda.synchronize()
+    pairs = [(o, A.reference_attention(q, k, v, mask))]
+    pairs += list(zip(grads, A.reference_attention_bwd(q, k, v, do, mask)))
+    for got, ref in pairs:
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 2e-2 * max(1.0, ref.float().abs().max().item()), err
