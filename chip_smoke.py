@@ -1039,8 +1039,8 @@ class CheckedRunner(ParallelRoundRunner):
     def _ensure_eval_cache(self, idx):
         return self._timed(super()._ensure_eval_cache, idx)
 
-    def _eval_dispatch(self, idxs_users):
-        ctx = super()._eval_dispatch(idxs_users)
+    def _eval_dispatch(self, idxs_users, epoch=None):
+        ctx = super()._eval_dispatch(idxs_users, epoch)
         if ctx is not None:
             self.eval_batches += ctx["logits"].shape[0] * ctx["logits"].shape[1]
             self.eval_calls.append(list(idxs_users))
@@ -2761,6 +2761,11 @@ class DistRunner(ParallelRoundRunner):
         super().__init__(*args, **kwargs)
         self.rounds, self.gathers = [], []
         DistRunner.last = self
+
+    def _all_gather(self, t):
+        out = super()._all_gather(t)
+        self.gathered_bytes = out.numel() * out.element_size()
+        return out
 
     def _gather_round(self, mesh, *args):
         torch.cuda.synchronize()

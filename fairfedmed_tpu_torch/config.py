@@ -296,8 +296,9 @@ def get_cfg_default() -> CfgNode:
     c.TRAIN.CHECKPOINT_FREQ = 0
     c.TRAIN.PRINT_FREQ = 10
     c.TRAIN.COUNT_ITER = "train_x"
-    # read by the JAX package's trainer (a profiler trace of the first
-    # epoch); the port does not trace yet
+    # a profiler trace written here: the sequential loop's first epoch, or
+    # under --parallel_clients the round after the first, with the span
+    # recorder on (utils/profiling.py)
     c.TRAIN.PROFILE_DIR = ""
 
     c.TEST = CfgNode()

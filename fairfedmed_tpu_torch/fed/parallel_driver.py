@@ -73,7 +73,8 @@ import torch.distributed as dist
 
 from ..core.mesh import build_mesh
 from ..train.checkpoint import check_like, latest_step, load_pytree, save_pytree
-from ..utils.profiling import PhaseTimer, stamp
+from ..utils import profiling
+from ..utils.profiling import span, stamp
 from . import dist as fdist
 from .aggregate import _freqs
 from .parallel import (apply_shared_half_s, client_weighted_mean, ema_blend, personalize,
@@ -154,7 +155,6 @@ class ParallelRoundRunner:
         self._cached_bytes = 0
         self._pending_eval = None
         self.fetches = 0  # blocking device-to-host fetches made by resolve_round
-        self.gathered_bytes = 0  # the last round's all_gather, every rank's buffer
         self._saved_steps = set()  # the step_N checkpoints this run wrote (or resumed)
         self._attr_col = None
         if not getattr(trainer, "disable_attr", True):
@@ -170,12 +170,14 @@ class ParallelRoundRunner:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _fetch(self, *tensors) -> list:
+    def _fetch(self, *tensors, round=None, line=None) -> list:
         """ONE blocking device-to-host transfer of ``tensors`` (floating ones
-        as fp32, others as they are), moved as bytes."""
+        as fp32, others as they are), moved as bytes: the ``fetch`` span of
+        ``round``, with ``line`` its ``[timing]`` line."""
         parts = [t.float() if t.is_floating_point() else t for t in tensors]
         flat = torch.cat([p.contiguous().reshape(-1).view(torch.uint8) for p in parts])
-        flat = flat.cpu().numpy()
+        with span("fetch", round=round, line=line, bytes=flat.numel()):
+            flat = flat.cpu().numpy()
         self.fetches += 1
         out, offset = [], 0
         for p in parts:
@@ -215,7 +217,8 @@ class ParallelRoundRunner:
             return self._data_cache[idx] is not None
         if idx not in self._train_host:
             stamp(f"device_cache:decode_start client={idx}")
-            decoded = self._decode_loader(self.trainer.fed_train_loader_x_dict[idx])
+            with span("cache.decode", client=idx):
+                decoded = self._decode_loader(self.trainer.fed_train_loader_x_dict[idx])
             if decoded is None:
                 self._data_cache[idx] = None
                 return False
@@ -224,11 +227,12 @@ class ParallelRoundRunner:
             self._train_host[idx] = decoded
         if upload:
             imgs, labels, attrs = self._train_host.pop(idx)
-            cache = {"img": self._to_device(imgs),
-                     "label": self._to_device(labels.astype(np.int64))}
-            stamp(f"device_cache:push_done client={idx}")
-            if self._attr_col is not None:
-                cache["attr"] = self._to_device(attrs[:, self._attr_col].astype(np.int64))
+            with span("cache.upload", client=idx, bytes=imgs.nbytes):
+                cache = {"img": self._to_device(imgs),
+                         "label": self._to_device(labels.astype(np.int64))}
+                stamp(f"device_cache:push_done client={idx}")
+                if self._attr_col is not None:
+                    cache["attr"] = self._to_device(attrs[:, self._attr_col].astype(np.int64))
             self._data_cache[idx] = cache
         return True
 
@@ -243,16 +247,18 @@ class ParallelRoundRunner:
         budget (rank 0's decisions stay every rank's) and dropped."""
         if idx in self._eval_cache:
             return self._eval_cache[idx]
-        decoded = self._decode_loader(self.trainer.fed_test_loader_x_dict[idx])
+        with span("cache.decode", client=idx):
+            decoded = self._decode_loader(self.trainer.fed_test_loader_x_dict[idx])
         cache = None
         if decoded is not None:
             imgs, labels, attrs = decoded
             self._cached_bytes += imgs.nbytes
-            cache = {"img": self._to_device(imgs) if self.rank == 0 else None,
-                     "label": labels, "attrs": attrs,
-                     "attr_dev": (self._to_device(attrs[:, self._attr_col].astype(np.int64))
-                                  if attrs is not None and self._attr_col is not None
-                                  and self.rank == 0 else None)}
+            with span("cache.upload", client=idx, bytes=imgs.nbytes if self.rank == 0 else 0):
+                cache = {"img": self._to_device(imgs) if self.rank == 0 else None,
+                         "label": labels, "attrs": attrs,
+                         "attr_dev": (self._to_device(attrs[:, self._attr_col].astype(np.int64))
+                                      if attrs is not None and self._attr_col is not None
+                                      and self.rank == 0 else None)}
         self._eval_cache[idx] = cache
         return cache
 
@@ -427,92 +433,97 @@ class ParallelRoundRunner:
         ``deferred`` a handle for :meth:`resolve_round`, having made no
         blocking call once the caches are filled.
 
-        Under ``FAIRFEDMED_TIMING=1`` rank 0 prints the JAX runner's phase
-        lines, fenced as there (``utils/profiling.py:PhaseTimer``).  The
-        batches here are per-step streams, so on the host assembly path
-        part of the assembly and of the copies runs inside the step loop.
-        ``batch assembly``: the LR draws, the cache decode and upload
-        calls, the permutations or the drained loaders; ``device_put``: the
-        wait for those copies; ``train program``: every own client's steps,
-        with their per-step batch gathers (and host batches' copies);
-        ``aggregate+scatter``: the gather over ranks, the aggregation and
-        the optimizer-state scatter."""
+        The round's phases are spans of ``utils/profiling.py``, tagged with
+        ``epoch``; under ``FAIRFEDMED_TIMING=1`` rank 0 prints them as the
+        JAX runner's phase lines, fenced as there.  The batches here are
+        per-step streams, so on the host assembly path part of the assembly
+        and of the copies runs inside the step loop.  ``round.batches``
+        (``batch assembly``): the LR draws, the cache decode and upload
+        calls, the permutations or the drained loaders, the index upload;
+        ``round.device_put`` (``device_put``): the wait for those copies,
+        printed only; ``round.train`` (``train program``): every own
+        client's steps, each a ``step`` span with its batch gather (and a
+        host batch's copies); ``round.aggregate`` (``aggregate+scatter``):
+        the gather over ranks, the aggregation and the optimizer-state
+        scatter."""
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         idxs_users = [int(i) for i in idxs_users]
+        profiling.read_timing_env()
         stamp(f"round:start epoch={epoch}")
-        timer = PhaseTimer(self.device)
         m = len(idxs_users)
         trainer = self.trainer
 
-        # the reference steps ONE shared scheduler per client-local epoch and
-        # registered model name, so client j trains at lr(steps + j * mult)
-        mult = getattr(trainer, "lr_step_multiplier", 1)
-        lrs = [trainer.lr_sched.lr(trainer._lr_steps + j * mult) for j in range(m)]
-        trainer._lr_steps += m * mult
+        with span("round.batches", round=epoch, line="batch assembly"):
+            # the reference steps ONE shared scheduler per client-local epoch and
+            # registered model name, so client j trains at lr(steps + j * mult)
+            mult = getattr(trainer, "lr_step_multiplier", 1)
+            lrs = [trainer.lr_sched.lr(trainer._lr_steps + j * mult) for j in range(m)]
+            trainer._lr_steps += m * mult
 
-        mesh = self._mesh(m)
-        own, rows = mesh.own_clients, slice(None)
-        if mesh.coord is not None and mesh.d > 1:
-            rows = mesh.batch_rows(mesh.coord[1])
-        streams, n_steps = self._round_batches_device(idxs_users, own, rows)
-        if streams is None:
-            streams, n_steps = self._round_batches(idxs_users, own, rows)
-        timer.lap("batch assembly")
-        timer.lap("device_put", fence=True)
-        s_max = max(n_steps)
-        step = self._local_step(fedprox_mu, mesh.data_group)
-        ctx_global = (self.global_t["prompt_learner.ctx"].float()
-                      if fedprox_mu is not None else None)
-        zero = torch.zeros(3, device=self.device)
-        trained_t, trained_o, metrics = [], [], []
-        for jj, j in enumerate(own):  # a shard's clients one after another, as on one TPU
-            idx = idxs_users[j]
-            t, o = self._row(self.personal_t, idx), self._row(self.stacked_o, idx)
-            ms = []
-            for i in range(n_steps[j]):
-                t, o, mt = step(t, o, streams[jj](i), lrs[j], ctx_global)
-                ms.append(mt)
-            ms += [zero] * (s_max - n_steps[j])  # a ragged client's extra steps do not run
-            trained_t.append(t)
-            trained_o.append(o)
-            metrics.append(torch.stack(ms))
-        timer.lap("train program", fence=True)
-        if self.world > 1:
-            trained_t, trained_o, metrics = self._gather_round(mesh, trained_t, trained_o,
-                                                               metrics, s_max)
-        else:
-            trained_t, trained_o = stack_clients(trained_t), stack_clients(trained_o)
-            metrics = torch.stack(metrics)  # [m, S, 3]: loss, valid, acc (0 where no step ran)
+            mesh = self._mesh(m)
+            own, rows = mesh.own_clients, slice(None)
+            if mesh.coord is not None and mesh.d > 1:
+                rows = mesh.batch_rows(mesh.coord[1])
+            streams, n_steps = self._round_batches_device(idxs_users, own, rows)
+            if streams is None:
+                streams, n_steps = self._round_batches(idxs_users, own, rows)
+        with span("round.device_put", round=epoch, line="device_put", fence=self.device):
+            pass
+        with span("round.train", round=epoch, line="train program", fence=self.device):
+            s_max = max(n_steps)
+            step = self._local_step(fedprox_mu, mesh.data_group)
+            ctx_global = (self.global_t["prompt_learner.ctx"].float()
+                          if fedprox_mu is not None else None)
+            zero = torch.zeros(3, device=self.device)
+            trained_t, trained_o, metrics = [], [], []
+            for jj, j in enumerate(own):  # a shard's clients one after another, as on one TPU
+                idx = idxs_users[j]
+                t, o = self._row(self.personal_t, idx), self._row(self.stacked_o, idx)
+                ms = []
+                for i in range(n_steps[j]):
+                    with span("step"):
+                        t, o, mt = step(t, o, streams[jj](i), lrs[j], ctx_global)
+                    ms.append(mt)
+                ms += [zero] * (s_max - n_steps[j])  # a ragged client's extra steps do not run
+                trained_t.append(t)
+                trained_o.append(o)
+                metrics.append(torch.stack(ms))
+        with span("round.aggregate", round=epoch, line="aggregate+scatter", fence=self.device):
+            if self.world > 1:
+                trained_t, trained_o, metrics = self._gather_round(mesh, trained_t, trained_o,
+                                                                   metrics, s_max)
+            else:
+                trained_t, trained_o = stack_clients(trained_t), stack_clients(trained_o)
+                metrics = torch.stack(metrics)  # [m, S, 3]: loss, valid, acc (0 where no step ran)
 
-        # aggregation weights (host scalars, fed/aggregate.py semantics)
-        freqs, freqs_by_attr = _freqs(
-            idxs_users, self.datanumber_client,
-            self.datanumber_client_by_attr if mode == "ema_personal" else None)
-        weights = self._to_device(np.asarray([freqs[i] for i in idxs_users], np.float32))
-        group_w = None
-        if freqs_by_attr is not None:
-            gw = np.stack([freqs_by_attr[i] for i in idxs_users])
-            # the observed histogram can be narrower than lora_S's group axis;
-            # the reference then falls back to the client-weighted mean
-            # (fed_utils.py:18-19)
-            if gw.shape[1] == self.num_groups:
-                group_w = self._to_device(gw.astype(np.float32))
-        beta_decay = 0.999 * (epoch / max(max_epoch, 1))
-        if not test_users:
-            test_users = list(range(self.num_users))
-        ts = set(int(i) for i in test_users)
-        keep = [i in self.args.idxs_users_train and i in ts for i in idxs_users]
-        idx_dev = self._to_device(np.asarray(idxs_users, np.int64))
-        update_dev = self._to_device(np.asarray(list(test_users), np.int64))
-        keep_dev = self._to_device(np.asarray(keep, bool))
+            # aggregation weights (host scalars, fed/aggregate.py semantics)
+            freqs, freqs_by_attr = _freqs(
+                idxs_users, self.datanumber_client,
+                self.datanumber_client_by_attr if mode == "ema_personal" else None)
+            weights = self._to_device(np.asarray([freqs[i] for i in idxs_users], np.float32))
+            group_w = None
+            if freqs_by_attr is not None:
+                gw = np.stack([freqs_by_attr[i] for i in idxs_users])
+                # the observed histogram can be narrower than lora_S's group axis;
+                # the reference then falls back to the client-weighted mean
+                # (fed_utils.py:18-19)
+                if gw.shape[1] == self.num_groups:
+                    group_w = self._to_device(gw.astype(np.float32))
+            beta_decay = 0.999 * (epoch / max(max_epoch, 1))
+            if not test_users:
+                test_users = list(range(self.num_users))
+            ts = set(int(i) for i in test_users)
+            keep = [i in self.args.idxs_users_train and i in ts for i in idxs_users]
+            idx_dev = self._to_device(np.asarray(idxs_users, np.int64))
+            update_dev = self._to_device(np.asarray(list(test_users), np.int64))
+            keep_dev = self._to_device(np.asarray(keep, bool))
 
-        self.global_t, self.personal_t = self._aggregate(
-            mode, trained_t, weights, group_w, beta_decay, idx_dev, update_dev, keep_dev)
-        # trained clients keep their optimizer state across rounds
-        self.stacked_o = {k: v.index_copy(0, idx_dev, trained_o[k].to(v.dtype))
-                          for k, v in self.stacked_o.items()}
-        timer.lap("aggregate+scatter", fence=True)
+            self.global_t, self.personal_t = self._aggregate(
+                mode, trained_t, weights, group_w, beta_decay, idx_dev, update_dev, keep_dev)
+            # trained clients keep their optimizer state across rounds
+            self.stacked_o = {k: v.index_copy(0, idx_dev, trained_o[k].to(v.dtype))
+                              for k, v in self.stacked_o.items()}
 
         digests = None
         if self.world > 1:  # every rank's digest of the round, fetched with the metrics
@@ -521,7 +532,7 @@ class ParallelRoundRunner:
         # evaluates; the others make its cache decisions)
         pending = None
         if eval_users is not None and self.rank == 0:
-            pending = self._eval_dispatch([int(i) for i in eval_users])
+            pending = self._eval_dispatch([int(i) for i in eval_users], epoch)
             if pending is not None:
                 pending["epoch"] = epoch
         elif eval_users is not None:
@@ -544,19 +555,18 @@ class ParallelRoundRunner:
         the enqueued evaluation logits together, then the per-client lines,
         then the round checkpoint when one is due (its own one fetch).  The
         fetched evaluation waits for :meth:`parallel_eval`."""
-        timer = PhaseTimer()
         pend = handle["pending_eval"]
         digests = handle["digests"]
         fetched = self._fetch(handle["metrics"],
                               *([] if pend is None else [pend["logits"]]),
-                              *([] if digests is None else [digests]))
+                              *([] if digests is None else [digests]),
+                              round=handle["epoch"], line="metrics fetch")
         ms = fetched[0]
         if pend is not None:
             pend["logits_host"] = fetched[1]
         if digests is not None:
             self._check_digests(handle["epoch"], fetched[-1])
         self._pending_eval = pend
-        timer.lap("metrics fetch")
         for j, idx in enumerate(handle["idxs_users"]):
             nv = max(float(ms[j, :, 1].sum()), 1.0)
             print(f"client {idx}: steps {int(handle['n_steps'][j])} "
@@ -614,7 +624,6 @@ class ParallelRoundRunner:
                     pieces.append(torch.zeros(pn - n, dtype=torch.uint8, device=self.device))
             buf = torch.cat(pieces)
         gathered = self._all_gather(buf)
-        self.gathered_bytes = gathered.numel()
         out = {"t": {}, "o": {}, "m": {}}
         for part, key, dt, shape in layout:
             out[part][key] = []
@@ -718,19 +727,23 @@ class ParallelRoundRunner:
                                {k: torch.where(mask[k], kept[k], cur[k]) for k in cur})
 
     # ------------------------------------------------------------- eval
-    def _eval_dispatch(self, idxs_users):
+    def _eval_dispatch(self, idxs_users, epoch=None):
         """Enqueue every listed client's test logits over its device cache,
         each client padded to the same number of batches (the loader's
-        pad-final rule within a client).  None when a client has no
-        cache."""
-        timer = PhaseTimer()
-        stamp("eval:dispatch_start")
-        caches = [self._ensure_eval_cache(i) for i in idxs_users]
-        if not caches or any(c is None for c in caches):
-            return None
-        has_attr = [c["attr_dev"] is not None for c in caches]
-        if any(has_attr) and not all(has_attr):
-            return None
+        pad-final rule within a client): the ``round.eval_dispatch`` span of
+        round ``epoch``.  None when a client has no cache."""
+        with span("round.eval_dispatch", round=epoch, line="eval assemble+dispatch") as sp:
+            stamp("eval:dispatch_start")
+            caches = [self._ensure_eval_cache(i) for i in idxs_users]
+            has_attr = [c is not None and c["attr_dev"] is not None for c in caches]
+            if not caches or any(c is None for c in caches) or (any(has_attr)
+                                                                and not all(has_attr)):
+                sp.quiet()
+                return None
+            return self._eval_enqueue(idxs_users, caches, all(has_attr))
+
+    def _eval_enqueue(self, idxs_users, caches, with_attr):
+        """The evaluation's index upload and its per-batch logits, enqueued."""
         bs = self.cfg.DATALOADER.TEST.BATCH_SIZE
         mats, n_valids = [], []
         for c in caches:
@@ -746,7 +759,6 @@ class ParallelRoundRunner:
         padded = np.stack([np.concatenate([mat, np.repeat(mat[:1], s_max - mat.shape[0], axis=0)])
                            for mat in mats]).astype(np.int64)  # [m, S, bs]
         mats_dev = self._to_device(padded)
-        with_attr = all(has_attr)
         logits = []
         for j, idx in enumerate(idxs_users):
             params = self._row(self.personal_t, idx)
@@ -755,7 +767,6 @@ class ParallelRoundRunner:
                 attr = caches[j]["attr_dev"].index_select(0, sel) if with_attr else None
                 logits.append(self._infer(params, caches[j]["img"].index_select(0, sel), attr))
         logits = torch.stack(logits)
-        timer.lap("eval assemble+dispatch")
         return {"idxs": list(idxs_users), "caches": caches, "mats": mats, "n_valids": n_valids,
                 "logits": logits.reshape((len(idxs_users), s_max) + tuple(logits.shape[1:]))}
 
@@ -772,31 +783,30 @@ class ParallelRoundRunner:
             self._pending_eval = None
             ctx = pending
         else:  # never another round's logits under this round's label
-            ctx = self._eval_dispatch(idxs_users)
+            ctx = self._eval_dispatch(idxs_users, current_epoch)
         if ctx is None:
             return None
-        timer = PhaseTimer()
-        logits = ctx.get("logits_host")
-        if logits is None:
-            (logits,) = self._fetch(ctx["logits"])
-        timer.lap("eval logits fetch")
+        with span("eval.logits", round=current_epoch, line="eval logits fetch"):
+            logits = ctx.get("logits_host")
+            if logits is None:
+                (logits,) = self._fetch(ctx["logits"])
         trainer = self.trainer
         results = []
-        for j, idx in enumerate(idxs_users):
-            c, mat, valid = ctx["caches"][j], ctx["mats"][j], ctx["n_valids"][j]
-            trainer.evaluator.reset()
-            print(f"Evaluate on the client{idx}_test set")
-            for row in range(mat.shape[0]):
-                rows_idx = mat[row, :valid[row]]
-                attrs_h = c["attrs"][rows_idx].T if c["attrs"] is not None else None
-                trainer.evaluator.process(logits[j, row, :valid[row]], c["label"][rows_idx],
-                                          attrs_h)
-            res = trainer.evaluator.evaluate()
-            for k, v in res.items():
-                if np.isscalar(v):
-                    trainer.write_scalar(f"test/{k}/{idx}", v, current_epoch)
-            results.append(list(res.values()))
-        timer.lap("eval host metrics")
+        with span("eval.host_metrics", round=current_epoch, line="eval host metrics"):
+            for j, idx in enumerate(idxs_users):
+                c, mat, valid = ctx["caches"][j], ctx["mats"][j], ctx["n_valids"][j]
+                trainer.evaluator.reset()
+                print(f"Evaluate on the client{idx}_test set")
+                for row in range(mat.shape[0]):
+                    rows_idx = mat[row, :valid[row]]
+                    attrs_h = c["attrs"][rows_idx].T if c["attrs"] is not None else None
+                    trainer.evaluator.process(logits[j, row, :valid[row]], c["label"][rows_idx],
+                                              attrs_h)
+                res = trainer.evaluator.evaluate()
+                for k, v in res.items():
+                    if np.isscalar(v):
+                        trainer.write_scalar(f"test/{k}/{idx}", v, current_epoch)
+                results.append(list(res.values()))
         return results
 
     # ------------------------------------------------------------- round checkpoints

@@ -39,6 +39,7 @@ CLIP and Baseline raise, as the JAX package runs them on one device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import os
 import sys
@@ -55,6 +56,7 @@ from .fed.aggregate import average_weights, average_weights_ema
 from .fed.parallel_driver import ParallelRoundRunner
 from .fed.sampler import sample_clients
 from .train.engine import build_trainer
+from .utils import profiling
 from .utils.logger import setup_logger
 from .utils.tools import count_parameters, set_random_seed
 
@@ -387,8 +389,18 @@ def main(args, device=None):
                              with_auc=with_auc, skip_eval=skip_eval)
         _schedule_flush(flush, skip_eval or handle["pending_eval"] is not None)
 
+    # TRAIN.PROFILE_DIR on the client-parallel path: the loop's iteration
+    # after the first (round start_epoch + 1 dispatched, then the round
+    # before it flushed) traced, with the span recorder on
+    profiled = contextlib.ExitStack()
+    profile_dir = cfg.TRAIN.PROFILE_DIR if runner is not None else ""
     try:
         for epoch in range(start_epoch, max_epoch):
+            if profile_dir and epoch == start_epoch + 1:
+                profiled.enter_context(profiling.profile_trace(profile_dir, device))
+                profiled.enter_context(profiling.recording())
+            elif epoch == start_epoch + 2:
+                profiled.close()
             train_start = f"------------local train start epoch: {epoch} -------------"
             if args.trainer == "CLIP":
                 # zero-shot evaluation, one round (federated_main.py:223-267)
@@ -595,6 +607,8 @@ def main(args, device=None):
                 print(f"deferred round flush failed during error unwind: {flush_err!r}",
                       file=sys.stderr)
         raise
+    finally:
+        profiled.close()
 
     if pending_flush is not None:  # the last deferred round
         pending_flush()

@@ -44,7 +44,7 @@ from ...models.clip_model import l2_normalize, pool_index, text_encode, vit_enco
 from ...models.prompt_learner import assemble_prompts, init_prompt_learner
 from ...models.resnet_clip import resnet_encode
 from ...ops.sinkhorn import entropic_cot, sinkhorn
-from ...utils.profiling import stamp
+from ...utils.profiling import span, stamp
 from ...utils.registry import DATASET_REGISTRY, TRAINER_REGISTRY
 from ..clip_common import (accuracy_from_logits, cross_entropy, fairness_confidence_loss,
                            fedprox_term, load_clip_bundle)
@@ -493,17 +493,20 @@ class GLPOTBase(TrainerX):
         differentiable = bool(getattr(self.cfg.TRAINER, "DIFFERENTIABLE_FEDPROX", False))
 
         def local_step(params, opt_state, batch, lr, ctx_global=None):
-            leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()
-                      if not k.startswith(BN_STATS)}
-            tree, stats = self._unflatten({**params, **leaves})
-            logits, valid, new_stats = self._forward(batch["img"], batch.get("attr"), train=True,
-                                                     trainable=tree, stats=stats)
-            loss = self._task_loss(logits, batch["label"], batch.get("attr"), group=data_group)
-            if fedprox_mu is not None:
-                loss = loss + fedprox_term(tree["prompt_learner"]["ctx"], ctx_global, fedprox_mu,
-                                           differentiable=differentiable)
-            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-            with torch.no_grad():
+            with span("step.forward"):
+                leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()
+                          if not k.startswith(BN_STATS)}
+                tree, stats = self._unflatten({**params, **leaves})
+                logits, valid, new_stats = self._forward(batch["img"], batch.get("attr"),
+                                                         train=True, trainable=tree, stats=stats)
+                loss = self._task_loss(logits, batch["label"], batch.get("attr"),
+                                       group=data_group)
+                if fedprox_mu is not None:
+                    loss = loss + fedprox_term(tree["prompt_learner"]["ctx"], ctx_global,
+                                               fedprox_mu, differentiable=differentiable)
+            with span("step.backward"):
+                grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+            with torch.no_grad(), span("step.update"):
                 grads = {k: torch.zeros_like(v) if g is None else g
                          for (k, v), g in zip(leaves.items(), grads)}
                 loss = loss.detach().float()

@@ -39,6 +39,7 @@ from ...fed.dist import all_reduce_sum
 from ...models.clip_model import l2_normalize, pool_index, text_encode, vit_encode
 from ...models.prompt_learner import assemble_prompts, init_prompt_learner
 from ...models.resnet_clip import resnet_encode
+from ...utils.profiling import span
 from ...utils.registry import TRAINER_REGISTRY
 from ..clip_common import accuracy_from_logits, cross_entropy, fedprox_term, load_clip_bundle
 from ..engine import TrainerX
@@ -188,14 +189,16 @@ class _CosineCLIPTrainer(TrainerX):
         n_data = dist.get_world_size(data_group) if data_group is not None else 1
 
         def local_step(params, opt_state, batch, lr, ctx_global=None):
-            ctx = params["prompt_learner.ctx"].detach().requires_grad_(True)
-            logits = self._forward(batch["img"], ctx)
-            loss = cross_entropy(logits, batch["label"])
-            if fedprox_mu is not None:
-                loss = loss + fedprox_term(ctx, ctx_global, fedprox_mu,
-                                           differentiable=differentiable)
-            (grad,) = torch.autograd.grad(loss, [ctx])
-            with torch.no_grad():
+            with span("step.forward"):
+                ctx = params["prompt_learner.ctx"].detach().requires_grad_(True)
+                logits = self._forward(batch["img"], ctx)
+                loss = cross_entropy(logits, batch["label"])
+                if fedprox_mu is not None:
+                    loss = loss + fedprox_term(ctx, ctx_global, fedprox_mu,
+                                               differentiable=differentiable)
+            with span("step.backward"):
+                (grad,) = torch.autograd.grad(loss, [ctx])
+            with torch.no_grad(), span("step.update"):
                 loss = loss.detach().float()
                 acc = accuracy_from_logits(logits.detach(), batch["label"])
                 if data_group is not None:

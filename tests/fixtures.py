@@ -147,3 +147,20 @@ def make_fedchexmimic_fixture(root: str, n_train: int = 8, n_test: int = 6,
                     os.path.join(base, f"meta_{site_name}_{attr}_{split}.csv"),
                     index=False)
     return base
+
+
+def small_argv(root, out_dir, rounds=2, extra=()):
+    """The small FairLoRA run both CLIs make on ``make_fairfedmed_fixture``'s
+    sites (``--opts`` last)."""
+    return [
+        "--model", "FedOTPLoRA", "--trainer", "GLP_OT_SVLoRA", "--round", str(rounds),
+        "--num_users", "2", "--frac", "0.5", "--OT", "None", "--n_ctx", "4",
+        "--num_prompt", "2", "--unfreeze_image_encoder", "True", "--lora_rank", "6",
+        "--lora_alpha", "2", "--lora_type", "FairLoRA", "--shared_half_s", "True",
+        "--lambda_fairness", "0.5", "--train_batch_size", "4", "--test_batch_size", "4",
+        "--stepsize", "200", "--backbone", "test-vit",
+        "--dataset-config-file", "configs/datasets/fairfedmed.yaml",
+        "--config-file", "configs/trainers/GLP_OT/vit_b16_oph.yaml",
+        "--root", str(root), "--output-dir", str(out_dir), *extra,
+        "INPUT.SIZE", "(32, 32)", "TRAINER.GLP_OT.PREC", "fp32",
+    ]

@@ -15,7 +15,7 @@ semantics (``tests/test_checkpoint_profiling.py``,
   one + 1); the root ``tools/train.py``'s ``.pth.tar`` name and pointer file;
 * a trainer resumed from that checkpoint takes the same next step as the
   one that wrote it (bit for bit: the same arithmetic on the same state);
-* ``HostTimers``, ``stamp`` and ``heartbeat`` behave as the JAX package's.
+* ``HostTimers`` and ``stamp`` behave as the JAX package's.
 """
 
 import os
@@ -228,11 +228,8 @@ def test_stamp_and_heartbeat(monkeypatch, capsys, env):
         monkeypatch.delenv(name, raising=False)
     if env:
         monkeypatch.setenv(env, "1")
-    tprof._heartbeat[0] -= 100.0
-    assert tprof.heartbeat_age() >= 100.0
     tprof.stamp("phase one")
     tprof.stamp("phase two")
-    assert tprof.heartbeat_age() < 50.0
     out = capsys.readouterr()
     assert out.out == ""
     if env:

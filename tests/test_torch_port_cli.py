@@ -49,7 +49,7 @@ from fairfedmed_tpu_torch.train import engine as tengine
 from fairfedmed_tpu_torch.train.trainers import glp_ot as tglp
 from fairfedmed_tpu_torch.train.trainers import promptfl as tpfl
 from fairfedmed_tpu_torch.utils import yaml_lite
-from tests.fixtures import make_fairfedmed_fixture
+from tests.fixtures import make_fairfedmed_fixture, small_argv
 
 torch.set_num_threads(1)
 
@@ -70,22 +70,6 @@ SCRIPT_FLAGS = [
     "--output-dir", "output/FairLoRA_vit_b16_oph_ema/fairfedmed_language_rank12_alpha2/seed1",
     "--shared_half_s", "True", "--lambda_fairness", "0.0",
 ]
-
-
-def small_argv(root, out_dir, rounds=2, extra=()):
-    """The small run both CLIs make on the fixture (``--opts`` last)."""
-    return [
-        "--model", "FedOTPLoRA", "--trainer", "GLP_OT_SVLoRA", "--round", str(rounds),
-        "--num_users", "2", "--frac", "0.5", "--OT", "None", "--n_ctx", "4",
-        "--num_prompt", "2", "--unfreeze_image_encoder", "True", "--lora_rank", "6",
-        "--lora_alpha", "2", "--lora_type", "FairLoRA", "--shared_half_s", "True",
-        "--lambda_fairness", "0.5", "--train_batch_size", "4", "--test_batch_size", "4",
-        "--stepsize", "200", "--backbone", "test-vit",
-        "--dataset-config-file", "configs/datasets/fairfedmed.yaml",
-        "--config-file", "configs/trainers/GLP_OT/vit_b16_oph.yaml",
-        "--root", str(root), "--output-dir", str(out_dir), *extra,
-        "INPUT.SIZE", "(32, 32)", "TRAINER.GLP_OT.PREC", "fp32",
-    ]
 
 
 @pytest.fixture(scope="module")
