@@ -36,12 +36,11 @@ SEED_MODULUS = 2 ** 31  # the port's --seed seeds numpy's global stream, which t
 class Run:
     """What a run measured, as the per-layer readers see it."""
 
-    def __init__(self, cell: spec.Cell, batch_size: int):
+    def __init__(self, cell: spec.Cell, batch_size: int, eval_batch_size: int):
         self.config, self.traffic = cell.config, cell.traffic
-        self.batch_size = batch_size
+        self.batch_size, self.eval_batch_size = batch_size, eval_batch_size
         self.rounds = []  # the window's rounds: host spans, steps, evaluation sizes
         self.traced_rounds = []  # the same of the rounds under the profiler
-        self.attn_calls = []  # the traced rounds' attention calls
         self.trace = None  # timeline.TraceView of the traced rounds
         self.setup_s = self.round0_s = self.window_s = None
         self.n_rounds = self.failed = self.peak = 0
@@ -50,36 +49,6 @@ class Run:
 
 def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
-
-
-class AttentionCalls:
-    """Wraps the model's attention entry
-    (``fairfedmed_tpu_torch.models.clip_model.flash_attention``) while
-    installed, recording each call's shape, causality and whether a
-    backward will follow."""
-
-    def __init__(self, calls: list):
-        self.calls = calls
-
-    def __enter__(self):
-        from fairfedmed_tpu_torch.models import clip_model
-
-        self.module, self.inner = clip_model, clip_model.flash_attention
-        calls, inner = self.calls, self.inner
-
-        def flash_attention(q, k, v, mask=None, scale=None):
-            b, h, length, dh = q.shape
-            calls.append({"n": b * h, "length": length, "dh": dh, "causal": mask is not None,
-                          "itemsize": q.element_size(),
-                          "backward": torch.is_grad_enabled() and any(
-                              t.requires_grad for t in (q, k, v))})
-            return inner(q, k, v, mask, scale)
-
-        clip_model.flash_attention = flash_attention
-        return self
-
-    def __exit__(self, *exc):
-        self.module.flash_attention = self.inner
 
 
 def _span(name):
@@ -185,7 +154,9 @@ class RoundLoop:
         return {"epoch": epoch, "fetch_s": t1 - t0, "eval_s": t2 - t1,
                 "n_steps": [int(n) for n in handle["n_steps"]],
                 "eval_rows": sum(int(v) for vs in n_valids for v in vs),
-                "eval_batches": sum(len(vs) for vs in n_valids)}
+                "eval_batches": sum(len(vs) for vs in n_valids),
+                # the program pads every client to the longest one's batches
+                "eval_batches_run": len(n_valids) * max(map(len, n_valids), default=0)}
 
 
 def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: str,
@@ -256,7 +227,7 @@ def _drive(cell, seed, seconds, trace, device, workdir, data_root, fixture, fm,
         raise RuntimeError("the program built no client-parallel runner for this configuration")
     parts["build_s"] = time.perf_counter() - t_build
 
-    run = Run(cell, cfg.DATALOADER.TRAIN_X.BATCH_SIZE)
+    run = Run(cell, cfg.DATALOADER.TRAIN_X.BATCH_SIZE, cfg.DATALOADER.TEST.BATCH_SIZE)
     run.parts = parts
     loop = RoundLoop(fm, runner, trainer, args, cfg)
     if faults is not None:
@@ -303,9 +274,8 @@ def _drive(cell, seed, seconds, trace, device, workdir, data_root, fixture, fm,
         pending = None
         trace_path = os.path.join(workdir, "trace.json")
         _sync(device)
-        with AttentionCalls(run.attn_calls), torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CPU,
-                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(cell.workload["trace_rounds"]):
                 handle, disp = loop.dispatch(epoch)
                 if pending is not None:

@@ -9,16 +9,21 @@ tensors), the log-sum-exp read, 10 n L^2 dh FLOPs (S rebuilt, then dV, dP,
 dQ, dK).  A causal call reads its [L, L] fp32 mask and needs L (L + 1) / 2
 of the L^2 scores.
 
-The device time is that of the kernels whose names match ``FWD`` or ``BWD``:
-the port's own kernels and PyTorch's SDPA / flash / memory-efficient /
-cuDNN attention kernels, so the share reads the same work whatever
-implements it."""
+The calls are those the configuration demands of the traced rounds, worked
+out from its shapes and the rounds' step and batch counts
+(``_flops.attention_calls``), not caught in the program: a step replayed
+from a CUDA graph, or attention fused into another kernel, does the same
+work and keeps the same numerator.  The device time is that of the kernels
+whose names match ``FWD`` or ``BWD``: the port's own kernels and PyTorch's
+SDPA / flash / memory-efficient / cuDNN attention kernels, so the share
+reads the same work whatever implements it."""
 
 from __future__ import annotations
 
 import re
 
 from ..peaks import FLOPS_PER_S, HBM_BYTES_PER_S
+from ._flops import attention_calls
 
 FWD = re.compile(r"attention_fwd|flash_fwd|fmha_cutlassF|efficient_attention_forward"
                  r"|fmha.*fprop|sdpa.*fprop|flash_attn.*fwd")
@@ -38,15 +43,35 @@ def bound_s(call: dict, which: str) -> float:
     return max(nbytes / HBM_BYTES_PER_S, flops / FLOPS_PER_S[TYPES[elt]])
 
 
+def traced_calls(run) -> list:
+    """The traced rounds' attention calls (``_flops.attention_calls``)."""
+    return attention_calls(run.config, run.traffic["classnames"], run.traced_rounds,
+                           run.batch_size, run.eval_batch_size)
+
+
+def kernel_times(run, which: str) -> list:
+    """Device seconds of each traced kernel matching ``FWD`` or ``BWD``."""
+    pattern = FWD if which == "fwd" else BWD
+    return [d for name, _, d in run.trace.ops if pattern.search(name)]
+
+
+def counts(run) -> dict:
+    """The traced rounds' attention calls from shapes, and the traced
+    kernels that match, forward and backward."""
+    calls = traced_calls(run)
+    return {"fwd_calls": len(calls), "bwd_calls": sum(c["backward"] for c in calls),
+            "fwd_kernels": len(kernel_times(run, "fwd")),
+            "bwd_kernels": len(kernel_times(run, "bwd"))}
+
+
 def roofline_share(run, which: str):
     """Σ bound / Σ kernel time of the traced rounds' attention, in %, or None
-    when no attention call was traced."""
-    calls = [c for c in run.attn_calls if which == "fwd" or c["backward"]]
+    when the traced rounds make no attention call of the kind."""
+    calls = [c for c in traced_calls(run) if which == "fwd" or c["backward"]]
     if not calls:
         return None
-    pattern = FWD if which == "fwd" else BWD
-    device = sum(d for name, _, d in run.trace.ops if pattern.search(name))
+    device = sum(kernel_times(run, which))
     if device <= 0:
-        raise RuntimeError(f"{len(calls)} attention {which} calls were traced but no kernel "
-                           f"matching {pattern.pattern!r} ran")
+        raise RuntimeError(f"{len(calls)} attention {which} calls were counted but no kernel "
+                           f"matching the {which} pattern ran")
     return 100.0 * sum(bound_s(c, which) for c in calls) / device

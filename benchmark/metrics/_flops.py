@@ -11,6 +11,9 @@ forward) are not counted.
 ViT-B/16 at 224 px, FairLoRA rank 12 (T = 197 tokens, D = 768, 12 layers,
 embed 512): forward 17.86e9 multiply-adds (35.7 GFLOPs) a image, backward
 17.64e9; RN50 at 224 px, rank 32: see ``resnet_macs``.
+
+The attention rooflines' calls (``attention_calls``) come from the same
+shapes.
 """
 
 from __future__ import annotations
@@ -95,6 +98,13 @@ def text_length(classnames: tuple, n_ctx: int) -> int:
     return int(ids.argmax(-1).max()) + 1
 
 
+def text_run_length(classnames: tuple, n_ctx: int, context_length: int) -> int:
+    """Positions the program runs the text tower at: the needed ones rounded
+    up to a multiple of 8, at least 8 and at most the context length
+    (``models/clip_model.py:text_encode``): 10 needed run as 16."""
+    return min(context_length, max(8, -(-text_length(classnames, n_ctx) // 8) * 8))
+
+
 def text_macs(arch: dict, method: dict, classnames) -> tuple:
     """(forward, backward) multiply-adds of one pass of the text tower over
     every prompt (prompts x classes sequences of the needed length); the
@@ -120,3 +130,46 @@ def round_flops(config: dict, classnames, rounds: list, batch_size: int) -> floa
         macs += steps * batch_size * sum(image) + steps * sum(text)
         macs += r["eval_rows"] * image[0] + r["eval_batches"] * text[0]
     return 2.0 * macs
+
+
+ITEMSIZE = {"fp16": 2, "amp": 2, "fp32": 4}  # PREC's matmul input: bf16 on the card, or fp32
+
+
+def attention_calls(config: dict, classnames, rounds: list, batch_size: int,
+                    eval_batch_size: int) -> list:
+    """The attention calls of ``rounds`` (each with its clients' step counts
+    and the batches its evaluation ran) as the configuration demands them,
+    one dict a call: ``n`` (batch x heads), ``length``, ``dh``, ``causal``,
+    ``itemsize`` and ``backward`` (whether its backward runs).
+
+    A training step runs the ViT tower's ``vision_layers`` calls over
+    ``batch_size`` images (heads of width 64, every token) and the text
+    tower's ``transformer_layers`` causal calls over every prompt
+    (``num_prompt`` x classes sequences at :func:`text_run_length`); an
+    evaluation batch runs both forward only, over ``eval_batch_size``
+    images, padding included.  As in :func:`vit_macs`, nothing trainable
+    lies below layer 0's vision attention (the adapters sit on the MLPs), so
+    it has no backward; the learned context enters the text tower at its
+    first position, so every text call has one.  The ResNet tower's
+    attention pool is no call of the attention kernels."""
+    arch, method = config["arch"], config["method"]
+    itemsize = ITEMSIZE[method["prec"]]
+    heads = arch["transformer_heads"]
+    text = {"n": method["num_prompt"] * len(classnames) * heads,
+            "length": text_run_length(tuple(classnames), method["n_ctx"], arch["context_length"]),
+            "dh": arch["transformer_width"] // heads, "causal": True, "itemsize": itemsize}
+    vision = None
+    if arch["kind"] == "vit":
+        grid = arch["image_resolution"] // arch["vision_patch_size"]
+        vision = {"length": grid * grid + 1, "dh": 64, "causal": False, "itemsize": itemsize}
+
+    def forward(batch: int, backward: bool) -> list:
+        calls = []
+        if vision is not None:
+            calls += [{**vision, "n": batch * (arch["vision_width"] // 64),
+                       "backward": backward and layer > 0} for layer in range(arch["vision_layers"])]
+        return calls + [{**text, "backward": backward}] * arch["transformer_layers"]
+
+    step, evaluation = forward(batch_size, True), forward(eval_batch_size, False)
+    return [dict(c) for r in rounds
+            for c in step * sum(r["n_steps"]) + evaluation * r["eval_batches_run"]]

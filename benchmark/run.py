@@ -58,6 +58,7 @@ def main(argv=None) -> int:
     import torch
 
     from benchmark import harness, spec
+    from benchmark.metrics import _attention
 
     cell = spec.load_cell(a.workload)
     if not torch.cuda.is_available():
@@ -89,6 +90,10 @@ def main(argv=None) -> int:
     result = {"correct": bool(correct), "attempted": run.n_rounds, "failed": run.failed,
               "metrics": metrics, "device": device}
     if a.trace:
+        att = _attention.counts(run)
+        print(f"attention in the traced rounds (informative): calls from shapes fwd "
+              f"{att['fwd_calls']} bwd {att['bwd_calls']}; traced kernels matching FWD "
+              f"{att['fwd_kernels']} BWD {att['bwd_kernels']}", file=sys.stderr)
         device["busy_s"], device["window_s"] = run.trace.busy_s, run.trace.window_s
         result["breakdown"] = {
             "device_ops": [[n[:NAME_CHARS], s] for n, s in run.trace.device_ops[:10]],

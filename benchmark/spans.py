@@ -23,7 +23,8 @@ object with the run's end-to-end and host-clock readings, ``correct``, and:
 * ``trace`` (``--trace 1``): :func:`reduce_program_trace` of the traced
   rounds: ``step_launches`` (host launch events inside ``ffm:step`` ranges
   over their count), its check against the device operations matched to
-  launches by correlation id, the attention wrappers' calls, and the idle
+  launches by correlation id, the attention calls worked out from the
+  traced rounds' shapes (``_flops.attention_calls``), and the idle
   gaps labelled ``<harness span>/<innermost program span>``;
 * ``alternate``: the host seconds of a local step with the recorder on
   less those of its neighbour with it off, over the window's rounds;
@@ -255,6 +256,7 @@ def main(argv=None) -> int:
     import torch
 
     from benchmark import harness, spec
+    from benchmark.metrics import _attention
     from fairfedmed_tpu_torch.utils import profiling
 
     if not torch.cuda.is_available():
@@ -305,8 +307,8 @@ def main(argv=None) -> int:
     if a.recorder == "alternate":
         result["alternate"] = faults.paired(window)
     if a.trace:
-        traced["attention_calls"] = {"fwd": len(run.attn_calls),
-                                     "bwd": sum(c["backward"] for c in run.attn_calls)}
+        att = _attention.counts(run)
+        traced["attention_calls"] = {"fwd": att["fwd_calls"], "bwd": att["bwd_calls"]}
         traced["traced_rounds"] = [r["epoch"] for r in run.traced_rounds]
         traced["gaps"] = traced["gaps"][:GAPS]
         result["trace"] = traced

@@ -1,17 +1,28 @@
 """The operation and byte counts the per-layer metrics divide by: against
-values worked out by hand, and against PyTorch's own FLOP counter over the
+values worked out by hand, against PyTorch's own FLOP counter over the
 plain reference's towers (forward, and the backward autograd runs when only
-the trainable leaves take gradients)."""
+the trainable leaves take gradients), and the attention calls worked out
+from shapes against those caught in the program's own call during tiny
+runs of the harness."""
 
+import contextlib
 import json
+import sys
+import time
+import types
+from collections import Counter
 
 import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from benchmark import inputs, spec
+from benchmark import harness, inputs, spec
 from benchmark.metrics import _attention, _flops
 from benchmark.reference import model as ref
+from benchmark.timeline import TraceView
+
+DATA = spec.HERE / "tests" / "data"
+NAMES = ["NOT Glaucoma", "Glaucoma"]
 
 
 def _config(name):
@@ -118,3 +129,129 @@ def test_round_flops_counts_steps_and_valid_rows():
     want = 2 * (32 * 32 * sum(image) + 32 * sum(text) + 600 * image[0] + 6 * text[0])
     assert _flops.round_flops(config, names, rounds, 32) == want
     assert _flops.text_length(tuple(names), 4) == 10  # SOT X X X X not glaucoma . EOT
+
+
+class AttentionCalls:
+    """Wraps the model's attention entry
+    (``fairfedmed_tpu_torch.models.clip_model.flash_attention``) while
+    installed, recording each call's shape, causality and whether a
+    backward will follow: the count the harness once took in the program,
+    kept here to hold the count from shapes to."""
+
+    def __init__(self, calls: list):
+        self.calls = calls
+
+    def __enter__(self):
+        from fairfedmed_tpu_torch.models import clip_model
+
+        self.module, self.inner = clip_model, clip_model.flash_attention
+        calls, inner = self.calls, self.inner
+
+        def flash_attention(q, k, v, mask=None, scale=None):
+            b, h, length, dh = q.shape
+            calls.append({"n": b * h, "length": length, "dh": dh, "causal": mask is not None,
+                          "itemsize": q.element_size(),
+                          "backward": torch.is_grad_enabled() and any(
+                              t.requires_grad for t in (q, k, v))})
+            return inner(q, k, v, mask, scale)
+
+        clip_model.flash_attention = flash_attention
+        return self
+
+    def __exit__(self, *exc):
+        self.module.flash_attention = self.inner
+
+
+def _functions():
+    """Every function and class bound in a loaded module of the program."""
+    return {(name, attr): obj for name, mod in list(sys.modules.items())
+            if name.split(".")[0] == "fairfedmed_tpu_torch" and mod is not None
+            for attr, obj in vars(mod).items() if callable(obj)}
+
+
+@pytest.mark.parametrize("kind", ["vit", "rn"])
+def test_attention_calls_equal_the_intercepted(kind, tmp_path, monkeypatch):
+    """Two traced rounds with their evaluations at a tiny size: the calls
+    worked out from the configuration equal, call for call, those caught
+    in the program's attention entry over the same rounds; and the harness
+    leaves the program's functions as it found them."""
+    from fairfedmed_tpu_torch import federated_main  # noqa: F401  (the program's modules)
+    from fairfedmed_tpu_torch.models import clip_model
+
+    bench = {"configs": [{"name": f"tiny_{kind}",
+                          "file": f"benchmark/tests/data/configs/tiny_{kind}.json"}],
+             "workloads": [{"name": f"tiny_{kind}_slo", "config": f"tiny_{kind}",
+                            "traffic": "tiny_slo", "chips": 1}], "end_to_end": [], "per_layer": []}
+    cell = spec.load_cell(f"tiny_{kind}_slo", bench, root=DATA)
+    cell.workload = {**cell.workload, "trace_rounds": 2}
+    before, original = _functions(), clip_model.flash_attention
+    calls, at_trace = [], []
+    profile = torch.profiler.profile
+
+    @contextlib.contextmanager
+    def intercepted(*args, **kwargs):  # the traced rounds, caught as the harness once did
+        at_trace.append(_functions())
+        with AttentionCalls(calls), profile(*args, **kwargs) as prof:
+            yield prof
+
+    monkeypatch.setattr(torch.profiler, "profile", intercepted)
+    run = harness.run_cell(cell, 2 ** 31 + 91, 0.3, True, "cpu", str(tmp_path / "work"),
+                           time.perf_counter())
+    assert clip_model.flash_attention is original
+    after = _functions()
+    assert len(at_trace) == 1
+    for then in (before, at_trace[0]):  # modules the run imported are left out of `before`
+        assert {k: v for k, v in after.items() if k in then} == then
+
+    assert len(run.traced_rounds) == 2
+    assert all(sum(r["n_steps"]) > 0 and r["eval_batches_run"] > 0 for r in run.traced_rounds)
+    derived = _flops.attention_calls(cell.config, cell.traffic["classnames"], run.traced_rounds,
+                                     run.batch_size, run.eval_batch_size)
+
+    def key(call):
+        return tuple(sorted(call.items()))
+
+    assert Counter(map(key, derived)) == Counter(map(key, calls))
+    assert {c["backward"] for c in calls} == {True, False}
+    assert {c["causal"] for c in calls} == ({True, False} if kind == "vit" else {True})
+
+
+def _vit_run(rounds, ops):
+    return types.SimpleNamespace(
+        config=_config("clip_vit_b16_fairlora"), traffic={"classnames": NAMES}, batch_size=32,
+        eval_batch_size=100, traced_rounds=rounds,
+        trace=TraceView(window_s=1.0, busy_s=0.5, ops=ops, gaps=[], device_ops=[]))
+
+
+def test_roofline_share_counts_the_rounds_calls():
+    """The reader on a synthetic run: the calls a round of the ViT cell
+    demands (32 steps, 6 evaluation batches of 100) over the time of the
+    kernels that match, with no record of calls on the run."""
+    ops = [("void ffm::attention_fwd_wgmma_kernel<64, 0>", 0.0, 0.002),
+           ("void ffm::attention_fwd_packed_kernel<64>", 0.01, 0.001),
+           ("void ffm::attention_bwd_wgmma_kernel<64, 0>", 0.02, 0.004),
+           ("nvjet_tst_192x192_64x4_2x1_v_bz_coopB_bias_TNN", 0.03, 0.05)]
+    run = _vit_run([{"n_steps": [16, 16], "eval_batches_run": 6}], ops)
+    assert not hasattr(run, "attn_calls")
+    assert _flops.text_run_length(tuple(NAMES), 4, 77) == 16  # 10 needed, rounded up to 8s
+    train = {"n": 384, "length": 197, "dh": 64, "causal": False, "itemsize": 2}
+    evaluated = {**train, "n": 1200}
+    text = {"n": 32, "length": 16, "dh": 64, "causal": True, "itemsize": 2}
+    b = _attention.bound_s
+    fwd = 32 * 12 * (b(train, "fwd") + b(text, "fwd")) + 6 * 12 * (b(evaluated, "fwd")
+                                                                 + b(text, "fwd"))
+    bwd = 32 * (11 * b(train, "bwd") + 12 * b(text, "bwd"))  # layer 0's vision call: none
+    assert _attention.roofline_share(run, "fwd") == pytest.approx(100 * fwd / 0.003)
+    assert _attention.roofline_share(run, "bwd") == pytest.approx(100 * bwd / 0.004)
+    assert _attention.counts(run) == {"fwd_calls": 38 * 24, "bwd_calls": 32 * 23,
+                                      "fwd_kernels": 2, "bwd_kernels": 1}
+
+    evaluation_only = _vit_run([{"n_steps": [0, 0], "eval_batches_run": 6}], ops)
+    assert _attention.roofline_share(evaluation_only, "bwd") is None
+    assert _attention.roofline_share(evaluation_only, "fwd") == pytest.approx(
+        100 * 6 * 12 * (b(evaluated, "fwd") + b(text, "fwd")) / 0.003)
+
+    no_kernel = _vit_run([{"n_steps": [16, 16], "eval_batches_run": 6}], ops[3:])
+    for which in ("fwd", "bwd"):
+        with pytest.raises(RuntimeError, match="no kernel"):
+            _attention.roofline_share(no_kernel, which)
