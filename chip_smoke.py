@@ -36,6 +36,11 @@ Phases, each printing one JSON line:
    ``test()`` on 100 images per client through ``Classification_oph``.  One
    more training step then runs under torch.profiler (``main_path_profile``):
    kernel time by class and the device's idle share of a step.
+   ``graph_step``: the client-parallel local step replayed from a CUDA graph
+   (``train/graphed.py``) against the eager step at the benchmark's two
+   configurations (ViT-B/16 and RN50 FairLoRA, bf16), bit for bit, with
+   ``tests/test_torch_port_graph_step.py``'s check; then the device ms of a
+   replayed step and of its two optimizer updates captured alone.
 5. The port's CLI, ``fairfedmed_tpu_torch.federated_main.main``, with the
    flags of a launcher script read from the script (the real config files at
    full width and depth, batch 32 / 100, bf16), except ``--root`` and
@@ -194,6 +199,11 @@ Phases, each printing one JSON line:
 
 Every path zeroes the kernel launch counters just before it runs and reads
 them just after; the counts must equal what the layer structure implies.
+A local step replayed from a CUDA graph counts, for each replay, the
+attention kernels that a profiled replay of its graph runs on the device
+(``kernel_launches``), the Python counters seeing no replay; the capture's
+own eager runs, which train nothing, are taken off (a ``graph_replays``
+line gives the parts).
 Then the ``kernels`` line (both kernels at the vision training shape and at
 ``text_caltech``; ``launches`` from main_path, ``launches_<path>`` from each
 other path; with each tensor-core kernel's registers and spills
@@ -841,6 +851,167 @@ def main_path(dev):
     return launches
 
 
+GRAPH_CELLS = ("vit_slo_fairlora", "rn50_slo_fairlora")
+
+
+# the kernels that begin each attention call on the device: the forward's
+# one kernel, and the backward's first (its tensor-core kernels are one
+# kernel a call; the plain path starts with its delta kernel)
+ATTN_KERNELS = {"attention_fwd": re.compile(r"attention_fwd(_packed|_wgmma)?_kernel"),
+                "attention_bwd": re.compile(r"attention_bwd_(wgmma|packed|delta)_kernel")}
+
+
+@contextlib.contextmanager
+def counting_captures():
+    """While open, each CUDA-graph capture of the port's local step
+    (``GraphedStep._capture``) records on its graph's entry the attention
+    calls that its eager runs (the warm-ups and the captured run, which
+    train nothing) made by the Python counters, as ``capture_calls``.
+    ``GraphedStep._capture`` is restored on leaving."""
+    from fairfedmed_tpu_torch.train import graphed
+
+    capture = graphed.GraphedStep._capture
+
+    def counted(self, *args):
+        before = {k: getattr(A, k).launches for k in ATTN_KERNELS}
+        entry = capture(self, *args)
+        entry.capture_calls = {k: getattr(A, k).launches - n for k, n in before.items()}
+        return entry
+
+    graphed.GraphedStep._capture = counted
+    try:
+        yield
+    finally:
+        graphed.GraphedStep._capture = capture
+
+
+def replay_calls(graph, passes=3) -> list:
+    """The attention calls one replay of ``graph`` makes, counted from the
+    device traces of ``passes`` profiled replays (``ATTN_KERNELS``), one
+    dict a pass.  A profiled pass may miss kernels (a first pass may record
+    none at all), never add one: the most a pass counts is the replay's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for _ in range(passes):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        counts.append({k: sum(bool(p.search(n)) for n in names) for k, p in ATTN_KERNELS.items()})
+    return counts
+
+
+def kernel_launches(runner=None, path=None) -> dict:
+    """The attention calls of a run.  The Python counters count the eager
+    calls, a graph capture's among them (``counting_captures``); those
+    are taken off, and each graph of ``runner``'s local steps adds its
+    replays times the calls that one replay makes on the device
+    (the most that a profiled pass of ``replay_calls`` counts, after the
+    run: the state it changes is no longer read).  Each capture's eager runs must have made what one replay makes,
+    run for run.  Where a step was graphed, prints a ``graph_replays`` line
+    with each graph's replays, calls a replay and the capture's calls."""
+    out = {k: getattr(A, k).launches for k in ATTN_KERNELS}
+    graphs = []
+    for step in (runner._steps.values() if runner is not None else ()):
+        for g in getattr(step, "graphs", {}).values():
+            passes = replay_calls(g.graph)
+            per_replay = {k: max(c[k] for c in passes) for k in ATTN_KERNELS}
+            graphs.append({"replays": g.replays, "calls_a_replay": per_replay,
+                           "profiled_passes": passes, "capture_runs": g.runs,
+                           "capture_calls": g.capture_calls})
+            for k, n in per_replay.items():
+                if g.capture_calls[k] != g.runs * n:
+                    raise AssertionError(f"{path}: a capture's {g.runs} eager runs called {k} "
+                                         f"{g.capture_calls[k]} times; one replay calls it {n}")
+                out[k] += g.replays * n - g.capture_calls[k]
+    if graphs:
+        emit({"phase": "graph_replays", "path": path, "graphs": graphs})
+    return out
+
+
+def _graph_ms(fn, dev, iters=20) -> float:
+    """Device ms of one replay of ``fn`` captured alone in a CUDA graph
+    (CUDA events around back-to-back replays)."""
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        fn()
+    return cuda_ms(g.replay, iters=iters)
+
+
+def graph_step(dev):
+    """The client-parallel local step replayed from a CUDA graph
+    (``train/graphed.py``) against the eager step, at the two published
+    configurations of ``benchmark/configs/`` (full width and depth, bf16),
+    each on a fixture of 128 training images a site: the check of
+    ``tests/test_torch_port_graph_step.py`` (two clients alternating runs
+    of steps from carried momentum and moved BatchNorm statistics, two
+    later epochs' rates; every output bit for bit, the eager step against
+    itself too; returned tensors unchanged by later replays), then the
+    device ms of one step's graph replayed back to back and of the two
+    optimizer updates captured alone, and the host ms a call of each kind."""
+    import importlib.util
+
+    from benchmark import spec
+
+    # by its path: a ``tests`` package installed elsewhere would shadow the folder
+    path = os.path.join(REPO, "tests", "test_torch_port_graph_step.py")
+    spec_ = importlib.util.spec_from_file_location("test_torch_port_graph_step", path)
+    check = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(check)
+    A.attention_fwd.launches = A.attention_bwd.launches = 0
+    total = {"attention_fwd": 0, "attention_bwd": 0}
+    for name in GRAPH_CELLS:
+        work = os.path.join(REPO, "build", "chip_smoke_graph_step", name)
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        runner = check.build_cell_runner(spec.load_cell(name), dev, work, 2 ** 31 + 29,
+                                         train_per_site=128, test_per_site=8)
+        graphed = runner._steps[(None, None)]
+        with counting_captures():
+            res = check.graph_against_eager(runner, graphed)
+        trainer = runner.trainer
+        (entry,) = graphed.graphs.values()
+        opt, n_opt = trainer.parallel_optimizer, trainer.opt_steps_per_batch
+        params = {k: v.clone() for k, v in graphed._static["params"].items()
+                  if not k.startswith("__bn_stats__")}
+        state = {k: v.clone() for k, v in graphed._static["opt"].items()}
+        grads = {k: torch.randn_like(v) for k, v in params.items()}
+
+        def update():
+            p, o = params, state
+            for _ in range(n_opt):
+                p, o = opt.update(p, grads, o, graphed._lr)
+
+        res.update(phase="graph_step", cell=name, model=trainer.cfg.MODEL.BACKBONE.NAME,
+                   step_graph_device_ms=cuda_ms(entry.graph.replay, iters=20),
+                   update_graph_device_ms=_graph_ms(update, dev),
+                   update_leaves=len(params), capture_eager_runs=entry.runs,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        launches = kernel_launches(runner, f"graph_step {name}")
+        emit(res)
+        check.assert_graph_equals_eager(res)
+        if res["copies_in"] != 2 * check.COPIES_IN or res["graphs"] != 1:
+            raise AssertionError(f"graph_step {name}: {res['copies_in']} copies in, "
+                                 f"{res['graphs']} graphs")
+        del runner, graphed, entry, params, state, grads
+        for k in total:
+            total[k] += launches[k]
+        A.attention_fwd.launches = A.attention_bwd.launches = 0
+        shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
 # --------------------------------------------------------------------------- #
 # phase 5: the CLI
 # --------------------------------------------------------------------------- #
@@ -1152,7 +1323,8 @@ def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None
         with open(console_path, "w") as console:
             sys.stdout = console  # the CLI's log tee writes here and to log.txt
             try:
-                result = fm.main(args)
+                with counting_captures():
+                    result = fm.main(args)
             finally:
                 tee, sys.stdout = sys.stdout, saved_stdout
                 if tee is not console:
@@ -1166,8 +1338,7 @@ def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None
         fm.ParallelRoundRunner = ParallelRoundRunner
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = {"attention_fwd": A.attention_fwd.launches,
-                "attention_bwd": A.attention_bwd.launches}
+    launches = kernel_launches(CheckedRunner.last, out_dir)
 
     trainer = holder["trainer"]
     with open(os.path.join(out_dir, "log.txt")) as f:
@@ -2804,7 +2975,8 @@ def _dist_rank(argv, report, device=None, watch=False):
     fm.ParallelRoundRunner = DistRunner
     A.attention_fwd.launches = A.attention_bwd.launches = 0
     t0 = time.perf_counter()
-    result = fm.main(fm.build_arg_parser().parse_args(argv), device=device)
+    with counting_captures():
+        result = fm.main(fm.build_arg_parser().parse_args(argv), device=device)
     torch.cuda.synchronize()
     runner = DistRunner.last
     with open(report, "w") as f:
@@ -2812,8 +2984,7 @@ def _dist_rank(argv, report, device=None, watch=False):
                    "backend": fdist.backend(), "main_s": time.perf_counter() - t0,
                    "rounds": runner.rounds, "gathers": runner.gathers, "fetches": runner.fetches,
                    "acc": result["acc"], "auc": result["auc"],
-                   "launches": {"attention_fwd": A.attention_fwd.launches,
-                                "attention_bwd": A.attention_bwd.launches}}, f)
+                   "launches": kernel_launches(runner, f"rank {fdist.get_rank()}")}, f)
 
 
 def _dist_spawned(rank, world, port, argv, report, device):
@@ -2997,7 +3168,7 @@ def dist_path(dev):
     return total
 
 
-PATHS = ("main_path", "cli_path", "oct_path", "rn50_path", "rn50_oct_path", "ot_path",
+PATHS = ("main_path", "graph_step", "cli_path", "oct_path", "rn50_path", "rn50_oct_path", "ot_path",
          "promptfl_path", "fedotp_path", "clip_path", "fedprox_path", "parallel_cli_path",
          "parallel_oct_path", "parallel_rn50_path", "parallel_branches", "parallel_equiv",
          "chexmimic_path", "parallel_chexmimic", "cifar_path", "caltech_path",

@@ -22,7 +22,10 @@ loop's state_dict harvest, deep copies and host aggregation per client:
 * ``run_round(..., deferred=True)`` only enqueues work: the host never waits
   for the device there once the caches are filled (round 0).
   ``resolve_round`` makes the round's one blocking fetch, the train
-  metrics and the round's evaluation logits together.
+  metrics and the round's evaluation logits together;
+* on a card, a local step whose batches come from the device caches is
+  replayed from a CUDA graph (``train/graphed.py``; :func:`graphs_step`
+  says which steps), captured in the first round that runs it.
 
 With ``--resume DIR`` or ``FAIRFEDMED_ROUND_CKPT=<dir>`` (which wins) a
 due round saves the whole federated state (global, stacked per-client
@@ -73,6 +76,7 @@ import torch.distributed as dist
 
 from ..core.mesh import build_mesh
 from ..train.checkpoint import check_like, latest_step, load_pytree, save_pytree
+from ..train.graphed import GraphedStep
 from ..utils import profiling
 from ..utils.profiling import span, stamp
 from . import dist as fdist
@@ -103,6 +107,18 @@ def _checksum(state: dict) -> torch.Tensor:
         part = (bits * w).remainder(65521).sum()
         total = part if total is None else total + part
     return total
+
+
+def graphs_step(device, trainer, fedprox_mu=None, data_group=None) -> bool:
+    """Whether the runner replays the local step of ``(fedprox_mu,
+    data_group)`` from a CUDA graph: on a CUDA device, with no FedProx term
+    (its global context changes per round) and no data group (its
+    ``all_reduce``), where the trainer says the step makes no host
+    synchronisation and has fixed shapes (``parallel_step_graphable``:
+    GLP-OT without OT).  Rounds whose batches come from the host keep the
+    eager step all the same (:meth:`ParallelRoundRunner._local_step`)."""
+    return (torch.device(device).type == "cuda" and fedprox_mu is None and data_group is None
+            and bool(getattr(trainer, "parallel_step_graphable", False)))
 
 
 def _pad_rows(arr: np.ndarray, n: int) -> np.ndarray:
@@ -137,7 +153,7 @@ class ParallelRoundRunner:
         self._meshes = {}  # round size -> RankMesh
 
         # (fedprox mu, data group) -> step; the probe raises where unsupported
-        self._steps = {(None, None): trainer.make_parallel_local_step()}
+        self._steps = {(None, None): self._make_step(None, None)}
         base = trainer.parallel_trainable()
         opt0 = trainer.parallel_opt_state()
         n = self.num_users
@@ -196,12 +212,20 @@ class ParallelRoundRunner:
                                          rank=self.rank)
         return self._meshes[m]
 
-    def _local_step(self, fedprox_mu, data_group=None):
+    def _make_step(self, fedprox_mu, data_group):
+        step = self.trainer.make_parallel_local_step(fedprox_mu=fedprox_mu, data_group=data_group)
+        if graphs_step(self.device, self.trainer, fedprox_mu, data_group):
+            return GraphedStep(step, self.device)
+        return step
+
+    def _local_step(self, fedprox_mu, data_group=None, cached=True):
+        """The step of ``(fedprox_mu, data_group)``; the eager one for a
+        round whose batches come from the host (not ``cached``)."""
         key = (fedprox_mu, data_group)
         if key not in self._steps:
-            self._steps[key] = self.trainer.make_parallel_local_step(fedprox_mu=fedprox_mu,
-                                                                     data_group=data_group)
-        return self._steps[key]
+            self._steps[key] = self._make_step(fedprox_mu, data_group)
+        step = self._steps[key]
+        return step if cached else getattr(step, "eager", step)
 
     def _row(self, stacked: dict, idx: int) -> dict:
         return {k: v[idx] for k, v in stacked.items()}
@@ -443,7 +467,9 @@ class ParallelRoundRunner:
         ``round.device_put`` (``device_put``): the wait for those copies,
         printed only; ``round.train`` (``train program``): every own
         client's steps, each a ``step`` span with its batch gather (and a
-        host batch's copies); ``round.aggregate`` (``aggregate+scatter``):
+        host batch's copies), holding a ``step.replay`` where the step is
+        graphed (and a ``step.capture`` where it is captured);
+        ``round.aggregate`` (``aggregate+scatter``):
         the gather over ranks, the aggregation and the optimizer-state
         scatter."""
         if mode not in MODES:
@@ -466,13 +492,14 @@ class ParallelRoundRunner:
             if mesh.coord is not None and mesh.d > 1:
                 rows = mesh.batch_rows(mesh.coord[1])
             streams, n_steps = self._round_batches_device(idxs_users, own, rows)
-            if streams is None:
+            cached = streams is not None
+            if not cached:
                 streams, n_steps = self._round_batches(idxs_users, own, rows)
         with span("round.device_put", round=epoch, line="device_put", fence=self.device):
             pass
         with span("round.train", round=epoch, line="train program", fence=self.device):
             s_max = max(n_steps)
-            step = self._local_step(fedprox_mu, mesh.data_group)
+            step = self._local_step(fedprox_mu, mesh.data_group, cached)
             ctx_global = (self.global_t["prompt_learner.ctx"].float()
                           if fedprox_mu is not None else None)
             zero = torch.zeros(3, device=self.device)

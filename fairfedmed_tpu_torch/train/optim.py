@@ -35,8 +35,11 @@ class FunctionalOptimizer:
     dicts, for the client-parallel rounds: every client owns a state dict of
     device tensors, its step count among them, so a step is undone with
     ``torch.where`` and the state stacks per client.  ``update`` returns new
-    tensors and changes none it was given; the learning rate is a host float.
-    State keys are ``count`` and ``<slot>:<path>``."""
+    tensors and changes none it was given.  The learning rate is a host
+    float, or a float32 0-dim tensor on the leaves' device (a CUDA graph's
+    rate, filled per call, ``train/graphed.py``): a float32 leaf is
+    multiplied by either in float32, so both give the same bits.  State keys
+    are ``count`` and ``<slot>:<path>``."""
 
     def __init__(self, optim_cfg):
         if optim_cfg.NAME not in AVAI_OPTIMS:
@@ -64,9 +67,10 @@ class FunctionalOptimizer:
             state.update({f"{slot}:{k}": torch.zeros_like(p) for k, p in params.items()})
         return state
 
-    def update(self, params: dict, grads: dict, state: dict, lr: float):
+    def update(self, params: dict, grads: dict, state: dict, lr):
         """One step: ``(new params, new state)``."""
         b1, b2 = self.betas
+        neg_lr = -lr
         count = state["count"] + 1
         countf = count.float()
         new_state = {"count": count}
@@ -80,11 +84,11 @@ class FunctionalOptimizer:
                     t = g + self.momentum * state[f"trace:{k}"]
                     new_state[f"trace:{k}"] = t
                     g = g + self.momentum * t if self.nesterov else t
-                u = -lr * g
+                u = neg_lr * g
             elif self.name == "rmsprop":  # eps outside the sqrt; lr before the trace
                 nu = (1 - self.alpha) * g * g + self.alpha * state[f"nu:{k}"]
                 new_state[f"nu:{k}"] = nu
-                u = -lr * (g / (torch.sqrt(nu) + self.eps))
+                u = neg_lr * (g / (torch.sqrt(nu) + self.eps))
                 if self.momentum > 0:
                     u = u + self.momentum * state[f"trace:{k}"]
                     new_state[f"trace:{k}"] = u
@@ -107,7 +111,7 @@ class FunctionalOptimizer:
                     u = torch.where(ro >= 5.0, r * u, mu_hat)
                 elif self.name == "adamw":
                     u = u + self.wd * p
-                u = -lr * u
+                u = neg_lr * u
             new_params[k] = p + u
         return new_params, new_state
 

@@ -469,6 +469,14 @@ class GLPOTBase(TrainerX):
         within-client data split would change them (JAX glp_ot.py:586-589)."""
         return self.backbone_type == "vit"
 
+    @property
+    def parallel_step_graphable(self) -> bool:
+        """Whether the parallel local step may be captured in a CUDA graph
+        (``fed/parallel_driver.py:graphs_step``): it makes no host
+        synchronisation and its shapes follow the batch's.  True without
+        OT; the solvers' steps stay eager."""
+        return self.cfg.TRAINER.GLP_OT.OT == "None"
+
     def make_parallel_local_step(self, fedprox_mu=None, data_group=None):
         """One client's step for the client-parallel round (JAX
         ``make_parallel_local_step``, glp_ot.py:483-546):
