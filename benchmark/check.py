@@ -2,15 +2,19 @@
 
 The window's entry is the program's client-parallel round
 (``ParallelRoundRunner.run_round`` / ``resolve_round`` / ``parallel_eval``).
-Two rounds go through that same call with ``StepRecorder`` put in place of
-the runner's local step: round 0 (set-up), whose first client's start state
-is the method's initialisation, and one round dispatched after the window
-closes (epoch >= 1, so it starts from the window's aggregated state and the
-clients' carried momentum, and its EMA takes a nonzero ``beta_decay``).  Of
-that round the recorder keeps the first client's start state and first
-three steps (batches, rates, outputs) and every client's last step; the
-round's evaluation is fetched as the CLI fetches it.  Once the program's
-state is freed the plain reference (``reference/model.py``, float32) follows
+Three rounds go through that same call with ``StepRecorder`` put in place
+of the runner's local step: round 0 (set-up), whose first client's start
+state is the method's initialisation; the round at the cell's
+``check_round`` (epoch >= 1, so it starts from an aggregated state and the
+clients' carried momentum, and its EMA takes a nonzero ``beta_decay``),
+dispatched before the window, so the training state it reads does not hang
+on how many rounds the window runs; and the round right after the window
+(and the traced tail), which reads the state every timed round left
+behind.  Of the last two the recorder keeps, on the host, the first
+client's start state and first three steps (batches, rates, outputs) and
+every client's last step; the round's evaluation is fetched as the CLI
+fetches it.  After the window, once the program's state
+is freed, the plain reference (``reference/model.py``, float32) follows
 from the program's start state.  The numbers compared (``NUMBERS``), each
 against its limit from the cell's workload file:
 
@@ -42,7 +46,12 @@ against its limit from the cell's workload file:
   program's trained clients, the worst leaf's relative difference;
 * ``eval_gap``: the round's evaluation logits of every test row of every
   client against the reference's logits from its own aggregated state, the
-  worst gap over the logit scale exp(logit_scale) (so in units of cosine).
+  worst gap over the logit scale exp(logit_scale) (so in units of cosine);
+* ``late_feed_gap``, ``late_change_gap``, ``late_agg_gap``,
+  ``late_eval_gap``: the same four of the round after the window.  The
+  step's other numbers grow with the training behind the round and are
+  compared at the check round alone; ``change_gap`` reads 1 for a step that
+  stopped moving the state, however late.
 
 A cell's workload file gives each number its limit, or none where no limit
 separates sound runs from the control and the faults (PERF.md gives the
@@ -61,51 +70,55 @@ import math
 import numpy as np
 import torch
 
-from .inputs import fed_images
+from . import spec
 from .reference import model as ref
 
 NUMBERS = ("start_gap", "init_std_gap", "feed_gap", "loss_gap", "grad_norm_gap", "grad_gap",
-           "change_norm_gap", "change_gap", "stats_gap", "agg_gap", "eval_gap")
+           "change_norm_gap", "change_gap", "stats_gap", "agg_gap", "eval_gap",
+           "late_feed_gap", "late_change_gap", "late_agg_gap", "late_eval_gap")
 REPORTED = ("eval_rms_gap",)
 STEPS = 3  # the reference follows the first three steps
 TINY = 1e-3  # a leaf whose reference gradient is under this share of the median leaf's is left out
 
 
-def _clone(tree: dict) -> dict:
-    return {k: v.detach().clone() for k, v in tree.items()}
+def _clone(tree: dict, to=None) -> dict:
+    """Copies of ``tree``'s tensors, on ``to`` (None: where each is)."""
+    return {k: v.detach().to(to, copy=True) if to is not None else v.detach().clone()
+            for k, v in tree.items()}
 
 
 class StepRecorder:
     """Stands in for the runner's local step during one round: calls it,
     keeps the first client's start state and first ``steps`` batches and
-    outputs (copies, made around the step), and each client's last output
-    (a client's run of steps ends where a call's state is not the previous
-    call's output)."""
+    outputs (copies, made around the step, on ``to``: None keeps them on the
+    device), and each client's last output (a client's run of steps ends
+    where a call's state is not the previous call's output)."""
 
-    def __init__(self, step, steps: int = STEPS):
-        self.step, self.steps = step, steps
+    def __init__(self, step, steps: int = STEPS, to=None):
+        self.step, self.steps, self.to = step, steps, to
         self.start = None
         self.batches, self.lrs, self.outputs, self.ends = [], [], [], []
         self._last = None
 
     def __call__(self, params, opt_state, batch, lr, ctx_global=None):
         if self.start is None:
-            self.start = (_clone(params), _clone(opt_state))
+            self.start = (_clone(params, self.to), _clone(opt_state, self.to))
         if self._last is not None and params is not self._last[0]:
             self.ends.append(self._last)
         first = len(self.batches) < self.steps and not self.ends
         if first:
-            self.batches.append(_clone(batch))
+            self.batches.append(_clone(batch, self.to))
             self.lrs.append(float(lr))
         out = self.step(params, opt_state, batch, lr, ctx_global)
         if first:
-            self.outputs.append((_clone(out[0]), _clone(out[1]), out[2].detach().float().cpu()))
+            self.outputs.append((_clone(out[0], self.to), _clone(out[1], self.to),
+                                 out[2].detach().float().cpu()))
         self._last = out
         return out
 
     def trained(self) -> list:
         """Every client's state after its last step, in the round's order."""
-        return [_clone(o[0]) for o in self.ends + [self._last]]
+        return [_clone(o[0], self.to) for o in self.ends + [self._last]]
 
 
 def capture_start(rec: StepRecorder, handle: dict) -> dict:
@@ -134,8 +147,8 @@ def capture_round(rec: StepRecorder, handle: dict, prev_global: dict, batch_size
         "outputs": rec.outputs[:STEPS],
         "trained": trained,
         "prev_global": prev_global,
-        "global": _clone(global_t),
-        "personal": _clone(personal_t),
+        "global": _clone(global_t, rec.to),
+        "personal": _clone(personal_t, rec.to),
     }
 
 
@@ -194,7 +207,7 @@ def cos_gap(prog: dict, refs: dict, keys) -> float:
     ``keys`` leaves, taken as one vector (1 where either is zero)."""
     dot = na = nb = 0.0
     for k in keys:
-        a, b = prog[k].double().reshape(-1), refs[k].double().reshape(-1)
+        a, b = prog[k].double().reshape(-1).cpu(), refs[k].double().reshape(-1).cpu()
         dot += float(a @ b)
         na += float(a @ a)
         nb += float(b @ b)
@@ -209,13 +222,13 @@ def gradient_from_optimizer(p0: dict, o0: dict, opt1: dict, lr: float, optim: di
     out = {}
     m, wd = optim["momentum"], optim["weight_decay"]
     for k, p in p0.items():
-        p = p.double()
+        p = p.double().cpu()
         a_t, b_t = 0.0, _momentum(o0, k, p).double()  # momentum = a_t * g + b_t
         a_p, b_p = 0.0, p  # parameter = a_p * g + b_p
         for _ in range(optim["steps_per_batch"]):
             a_t, b_t = 1.0 + wd * a_p + m * a_t, wd * b_p + m * b_t
             a_p, b_p = a_p - lr * a_t, b_p - lr * b_t
-        out[k] = ((opt1[f"trace:{k}"].double() - b_t) / a_t).float()
+        out[k] = ((opt1[f"trace:{k}"].double().cpu() - b_t) / a_t).float()
     return out
 
 
@@ -225,9 +238,11 @@ def _momentum(opt: dict, key: str, like: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(like) if t is None else t.to(like.device)
 
 
-def _site_rows(fixture: dict, site: int, split: str, attr: str):
-    d = fixture[site][split]
-    return fed_images(d["pixels"]), d["label"].astype(np.int64), d["attrs"][attr].astype(np.int64)
+def _site_rows(fixture: dict, site: int, split: str, traffic: dict):
+    """(what the dataset gives the model, labels, groups) of a site's split."""
+    d, attr = fixture[site][split], traffic["attribute_type"]
+    fed = spec.load_modality(traffic["modality"]).fed(d["pixels"], traffic)
+    return fed, d["label"].astype(np.int64), d["attrs"][attr].astype(np.int64)
 
 
 def _identify(batch: dict, images: np.ndarray, labels, groups) -> tuple:
@@ -251,9 +266,9 @@ def _identify(batch: dict, images: np.ndarray, labels, groups) -> tuple:
 def step_readings(cap: dict, fixture: dict, model: ref.ReferenceCLIP, cell, device) -> dict:
     """feed_gap and the loss, gradient, change and statistics numbers of the
     program's first three steps against ``model``."""
-    optim, attr = cell.config["optim"], cell.traffic["attribute_type"]
+    optim = cell.config["optim"]
     site = cap["users"][0] + 1
-    images, labels, groups = _site_rows(fixture, site, "train", attr)
+    images, labels, groups = _site_rows(fixture, site, "train", cell.traffic)
     idx, bad = [], 0
     for b in cap["batches"]:
         rows, n_bad = _identify(b, images, labels, groups)
@@ -294,7 +309,7 @@ def step_readings(cap: dict, fixture: dict, model: ref.ReferenceCLIP, cell, devi
     out["grad_gap"] = cos_gap(per_layer(g_prog), per_layer(first_grad), counted)
 
     p3 = cap["outputs"][STEPS - 1][0]
-    d_prog = {k: (p3[k].float() - p0[k].float()).cpu() for k in p0}
+    d_prog = {k: p3[k].float().cpu() - p0[k].float().cpu() for k in p0}
     d_ref = {k: state[k].cpu() - p0[k].float().cpu() for k in p0}
     out["change_gap"] = cos_gap(per_layer(d_prog), per_layer(d_ref), counted)
     stats = [k for k in p0 if k not in keys]  # BatchNorm statistics
@@ -392,11 +407,10 @@ def eval_logits(ev: dict, fixture: dict, model: ref.ReferenceCLIP, cell, device,
     """The reference's logits from ``state`` (every test user's) of every
     row the program evaluated, laid out as the program's ([clients, batches,
     batch, classes]; padding rows 0)."""
-    attr = cell.traffic["attribute_type"]
     out = np.zeros(ev["logits"].shape, np.float64)
     state = {k: v.to(device).float() for k, v in state.items()}
     for j, user in enumerate(ev["idxs"]):
-        images, _, groups = _site_rows(fixture, user + 1, "test", attr)
+        images, _, groups = _site_rows(fixture, user + 1, "test", cell.traffic)
         for row, valid in enumerate(ev["n_valids"][j]):
             sel = ev["mats"][j][row, :valid]
             want, _ = model.logits(state, torch.as_tensor(images[sel]).to(device),
@@ -430,8 +444,8 @@ def reference_as_program(cap: dict, fixture: dict, model: ref.ReferenceCLIP, cel
     program's place (the control, or a fault planted in the reference):
     the same start, batches and rates.  ``rows_of(batch_size)`` keeps some
     of each batch's rows, the others left out of the step (a fault)."""
-    optim, attr = cell.config["optim"], cell.traffic["attribute_type"]
-    images, labels, groups = _site_rows(fixture, cap["users"][0] + 1, "train", attr)
+    optim = cell.config["optim"]
+    images, labels, groups = _site_rows(fixture, cap["users"][0] + 1, "train", cell.traffic)
     idx = [_identify(b, images, labels, groups)[0] for b in cap["batches"]]
     p0, o0 = cap["start"]
     state = {k: v.to(device).float() for k, v in p0.items()}

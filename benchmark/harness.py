@@ -1,6 +1,8 @@
 """One run of one cell: set-up through the port's CLI code, round 0, the
-timed window of client-parallel rounds, an optional traced tail, one more
-round recorded for the check, then the comparison with the plain reference.
+rounds up to the cell's ``check_round`` (that one recorded for the check,
+its copies on the host), the timed window of client-parallel rounds, an
+optional traced tail, one more round recorded after them, then the
+comparison with the plain reference.
 
 The window drives the same calls in the same order as the FedOTPLoRA branch
 of ``fairfedmed_tpu_torch/federated_main.py:main`` under
@@ -170,7 +172,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: st
     t = time.perf_counter()
     shutil.rmtree(workdir, ignore_errors=True)
     data_root = os.path.join(workdir, "data")
-    fixture = inputs.write_fixture(data_root, cell.traffic, seed)
+    fixture = inputs.write_fixture(data_root, cell.traffic, seed, device)
     parts["fixture_s"] = time.perf_counter() - t
 
     t = time.perf_counter()
@@ -245,6 +247,18 @@ def _drive(cell, seed, seconds, trace, device, workdir, data_root, fixture, fm,
     loop.flush(handle)
     del handle
     run.round0_s = parts["round0_s"] = time.perf_counter() - t
+
+    # the rounds up to the check's, the last recorded through the same calls
+    # (check.py): the first client's first steps, every client's trained
+    # state, the aggregation and the evaluation, copied to the host, so the
+    # check reads the same training state however fast the window runs
+    t = time.perf_counter()
+    check_round = cell.workload["check_round"]
+    for epoch in range(1, check_round):
+        handle, _ = loop.dispatch(epoch)
+        loop.flush(handle)
+    recorded = record_round(loop, runner, check_round, run.batch_size)
+    parts["check_rounds_s"] = time.perf_counter() - t
     loop.failed = 0  # count the window's rounds
     _sync(device)
     gc.collect()
@@ -252,7 +266,7 @@ def _drive(cell, seed, seconds, trace, device, workdir, data_root, fixture, fm,
     setup_s = time.perf_counter() - t_start
 
     # the window: whole rounds back to back until `seconds` have passed
-    epoch, pending = 1, None
+    epoch, pending = check_round + 1, None
     t0 = time.perf_counter()
     while True:
         handle, disp = loop.dispatch(epoch)
@@ -266,7 +280,7 @@ def _drive(cell, seed, seconds, trace, device, workdir, data_root, fixture, fm,
         run.rounds.append({**loop.flush(pending[0]), "dispatch_s": pending[1]})
         pending = None
     window_s = time.perf_counter() - t0
-    n_rounds = epoch - 1
+    n_rounds = epoch - check_round - 1
     cpu_s = time.process_time() - cpu0
 
     if trace:  # the traced tail: `trace_rounds` more rounds under the profiler
@@ -294,20 +308,9 @@ def _drive(cell, seed, seconds, trace, device, workdir, data_root, fixture, fm,
 
     run.setup_s, run.window_s, run.n_rounds, run.failed = setup_s, window_s, n_rounds, loop.failed
     run.peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
-
-    # one more round through the same calls, recorded for the check
-    # (check.py): the first client's first steps, every client's trained
-    # state, the aggregation and the evaluation
-    prev_global = check._clone(runner.global_t)
-    recorder = check.StepRecorder(runner._steps[key])
-    runner._steps[key] = recorder
-    handle, _ = loop.dispatch(epoch)
-    runner._steps[key] = recorder.step
-    recorded = check.capture_round(recorder, handle, prev_global, run.batch_size)
-    del recorder, prev_global
-    evals = []
-    loop.flush(handle, capture=evals)
-    recorded["eval"] = evals[0]
+    # the round after the window and the traced tail, through the same calls:
+    # the state that every round of the window left behind
+    late = record_round(loop, runner, epoch, run.batch_size)
 
     found = forbidden_modules()
     if found:
@@ -322,16 +325,33 @@ def _drive(cell, seed, seconds, trace, device, workdir, data_root, fixture, fm,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    run.readings = compare(cell, fixture, data_root, round0, recorded, device)
+    run.readings = compare(cell, fixture, data_root, round0, recorded, late, device)
     if extra is not None:
-        run.readings.update(extra(cell, fixture, data_root, round0, recorded, device))
+        run.readings.update(extra(cell, fixture, data_root, round0, recorded, late, device))
     print(f"reference check: {time.perf_counter() - t:.1f} s", file=log)
     return run
 
 
+def record_round(loop: RoundLoop, runner, epoch: int, batch_size: int) -> dict:
+    """Round ``epoch`` dispatched and flushed with ``check.StepRecorder`` in
+    place of the runner's local step: what the check reads of it
+    (``check.capture_round`` and the evaluation), copied to the host."""
+    key = (None, None)
+    prev_global = check._clone(runner.global_t, "cpu")
+    recorder = check.StepRecorder(runner._steps[key], to="cpu")
+    runner._steps[key] = recorder
+    handle, _ = loop.dispatch(epoch)
+    runner._steps[key] = recorder.step
+    recorded = check.capture_round(recorder, handle, prev_global, batch_size)
+    evals = []
+    loop.flush(handle, capture=evals)
+    recorded["eval"] = evals[0]
+    return recorded
+
+
 def reference_model(cell, data_root, device, prec="fp32"):
     sd = torch.load(inputs.checkpoint_file(data_root, cell.config["backbone"]), map_location="cpu")
-    return ref.ReferenceCLIP(sd, cell.traffic["classnames"], cell.config["method"], device, prec)
+    return ref.ReferenceCLIP(sd, cell.config, cell.traffic, device, prec)
 
 
 @contextlib.contextmanager
@@ -345,19 +365,20 @@ def no_tf32():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
-def compare(cell, fixture, data_root, round0, recorded, device) -> dict:
+def compare(cell, fixture, data_root, round0, recorded, late, device) -> dict:
     """The numbers of ``check.NUMBERS``, the program against the float32
-    reference."""
+    reference: of the check round, and with the prefix ``late_`` of the
+    round after the window."""
     with no_tf32():
         model = reference_model(cell, data_root, device)
-        out = {}
-        out.update(check.start_readings(round0, model, cell))
-        out.update(check.step_readings(recorded, fixture, model, cell, device))
-        agg = check.agg_reference(recorded, fixture, cell)
-        out.update(check.agg_readings(recorded, agg))
-        ev = recorded["eval"]
-        want = check.eval_logits(ev, fixture, model, cell, device, agg)
-        out.update(check.eval_readings(ev, want, model))
+        out = check.start_readings(round0, model, cell)
+        for prefix, cap in (("", recorded), ("late_", late)):
+            readings = check.step_readings(cap, fixture, model, cell, device)
+            agg = check.agg_reference(cap, fixture, cell)
+            readings.update(check.agg_readings(cap, agg))
+            want = check.eval_logits(cap["eval"], fixture, model, cell, device, agg)
+            readings.update(check.eval_readings(cap["eval"], want, model))
+            out.update({prefix + k: v for k, v in readings.items()})
         return out
 
 

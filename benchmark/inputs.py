@@ -4,8 +4,8 @@ traffic), a CLIP checkpoint of seeded random weights in OpenAI's key layout
 
 ``write_fixture`` is a copy of ``chip_smoke.py:write_fairfedmed_fixture``
 (the layout of ``dataset.md``: ``fairfedmed/all/data_*.npz`` and
-``meta_site{k}_{attr}_{split}.csv``) driven by a traffic file, with smooth
-grey images in the manner of ``chip_smoke.py:_smooth_image`` made in bulk.
+``meta_site{k}_{attr}_{split}.csv``) driven by a traffic file; the images
+come from the traffic's modality module (``modalities/``).
 ``launcher_flags`` is a copy of ``chip_smoke.py:script_flags``.
 """
 
@@ -20,53 +20,34 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from . import spec
 
 WRITERS = 4  # threads writing the fixture's files
 
 # --------------------------------------------------------------------------- traffic
 
 
-def _smooth_images(rng: np.random.Generator, n: int, size: int) -> np.ndarray:
-    """[n, size, size] uint8 photo-like grey images: coarse random levels
-    upsampled bicubically, plus fine noise (so deflate finds some structure,
-    as it does in a fundus photograph)."""
-    coarse = max(2, size // 24)
-    levels = torch.from_numpy(rng.integers(0, 256, (n, 1, coarse, coarse)).astype(np.float32))
-    up = F.interpolate(levels, size=(size, size), mode="bicubic", align_corners=False)[:, 0]
-    noise = torch.from_numpy(rng.integers(-12, 13, (n, size, size)).astype(np.float32))
-    return (up + noise).round().clamp(0, 255).to(torch.uint8).numpy()
-
-
-def _cup(pixels: np.ndarray, labels: np.ndarray, cup: dict) -> np.ndarray:
-    """``pixels`` with a bright central disc (the optic cup) whose radius, a
-    share of the side, is ``cup["radius"][label]``: the cup-to-disc ratio
-    that grows with glaucoma, so each class's images differ in content."""
-    size = pixels.shape[-1]
-    yy, xx = np.mgrid[:size, :size]
-    r = np.hypot(yy - (size - 1) / 2, xx - (size - 1) / 2) / size
-    discs = np.stack([r < rad for rad in cup["radius"]])  # [classes, size, size]
-    return np.clip(pixels.astype(np.int16) + cup["level"] * discs[labels], 0, 255).astype(np.uint8)
-
-
-def write_fixture(root: str, traffic: dict, seed: int) -> dict:
+def write_fixture(root: str, traffic: dict, seed: int, device="cpu") -> dict:
     """Write the traffic's FairFedMed sites under ``root/fairfedmed`` and
     return what the reference needs, in each split's CSV order:
-    ``{site: {split: {"pixels": uint8 [n, H, W] as stored, "label": [n],
+    ``{site: {split: {"pixels": the stored arrays [n, ...], "label": [n],
     "attrs": {attr: [n]}}}}``.  Labels and attributes are laid out so every
-    demographic group holds both classes, then shuffled; with ``cup`` each
-    image carries its class's optic cup (``_cup``)."""
+    demographic group holds both classes, then shuffled.  The modality's
+    module (``modalities/<modality>.py``) makes each split's stored arrays,
+    from the run's generator and on ``device`` where it draws there, and
+    names the NPZ's members.  A file whose running number is not a multiple
+    of ``deflate_every`` is deflated (``deflate_every`` 0 or absent: none
+    is)."""
     rng = np.random.default_rng([seed, 17])
     base = os.path.join(root, "fairfedmed")
     all_dir = os.path.join(base, "all")
     os.makedirs(all_dir, exist_ok=True)
-    modality, size = traffic["modality"], traffic["size"]
-    if modality != "slo_fundus":
-        raise NotImplementedError(f"the fixture writer makes slo_fundus sites, not {modality}")
+    modality = spec.load_modality(traffic["modality"])
     groups = traffic["groups"]
-    every = traffic["deflate_every"]
+    every = traffic.get("deflate_every", 0)
     out, counter, jobs = {}, 0, []
-    pool = ThreadPoolExecutor(WRITERS)  # deflate releases the GIL
+    pool = ThreadPoolExecutor(WRITERS)  # deflate and file writes release the GIL
     for site in range(1, traffic["sites"] + 1):
         out[site] = {}
         for split in ("train", "test"):
@@ -74,15 +55,13 @@ def write_fixture(root: str, traffic: dict, seed: int) -> dict:
             i, order = np.arange(n), rng.permutation(n)
             labels = (i % 2)[order]
             attrs = {a: ((i // 2) % g)[order] for a, g in groups.items()}
-            pixels = _smooth_images(rng, n, size)
-            if "cup" in traffic:
-                pixels = _cup(pixels, labels, traffic["cup"])
+            stored = modality.make_split(rng, labels, traffic, device)
             fnames = []
             for j in range(n):
                 fname = f"data_{counter:05d}.npz"
                 save = np.savez_compressed if every and counter % every else np.savez
                 jobs.append(pool.submit(
-                    save, os.path.join(all_dir, fname), **{modality: pixels[j]},
+                    save, os.path.join(all_dir, fname), **modality.npz_members(stored[j]),
                     glaucoma=np.asarray(labels[j]), **{a: np.asarray(v[j]) for a, v in attrs.items()}))
                 fnames.append(fname)
                 counter += 1
@@ -92,118 +71,61 @@ def write_fixture(root: str, traffic: dict, seed: int) -> dict:
                     w = csv.writer(f)
                     w.writerow(["filename"])
                     w.writerows([fn] for fn in fnames)
-            out[site][split] = {"pixels": pixels, "label": labels, "attrs": attrs}
+            out[site][split] = {"pixels": stored, "label": labels, "attrs": attrs}
     for job in jobs:
         job.result()
     pool.shutdown()
     return out
 
 
-def fed_images(pixels: np.ndarray) -> np.ndarray:
-    """What the dataset gives the model for stored SLO pixels [n, H, W]:
-    the transpose, repeated over 3 channels -> [n, 3, W, H] uint8."""
-    t = np.ascontiguousarray(np.transpose(pixels, (0, 2, 1)))
-    return np.repeat(t[:, None], 3, axis=1)
-
-
 # --------------------------------------------------------------------------- weights
+
+
+def ln_leaves(name: str, dim: int) -> list:
+    """A LayerNorm's (or a BatchNorm's affine) weight 1 and bias 0."""
+    return [(f"{name}.weight", (dim,), ("ones",)), (f"{name}.bias", (dim,), ("zeros",))]
+
+
+def block_leaves(prefix: str, layers: int, width: int) -> list:
+    """CLIP's residual attention blocks ``<prefix>.resblocks.<i>``, with the
+    standard deviations of ``CLIP.initialize_parameters``."""
+    attn_std, proj_std, fc_std = width ** -0.5, width ** -0.5 * (2 * layers) ** -0.5, (2 * width) ** -0.5
+    leaves = []
+    for i in range(layers):
+        p = f"{prefix}.resblocks.{i}"
+        leaves.extend([
+            (f"{p}.attn.in_proj_weight", (3 * width, width), ("normal", attn_std)),
+            (f"{p}.attn.in_proj_bias", (3 * width,), ("zeros",)),
+            (f"{p}.attn.out_proj.weight", (width, width), ("normal", proj_std)),
+            (f"{p}.attn.out_proj.bias", (width,), ("zeros",)),
+            (f"{p}.mlp.c_fc.weight", (4 * width, width), ("normal", fc_std)),
+            (f"{p}.mlp.c_fc.bias", (4 * width,), ("zeros",)),
+            (f"{p}.mlp.c_proj.weight", (width, 4 * width), ("normal", proj_std)),
+            (f"{p}.mlp.c_proj.bias", (width,), ("zeros",))])
+        leaves += ln_leaves(f"{p}.ln_1", width) + ln_leaves(f"{p}.ln_2", width)
+    return leaves
 
 
 def checkpoint_leaves(arch: dict, init: dict = None) -> list:
     """``(key, shape, init)`` of an OpenAI CLIP state dict of ``arch`` (the
     keyword names of ``clip/model.py:CLIP``); ``init`` is ``("normal",
-    std)``, ``("ones",)``, ``("zeros",)`` or ``("const", value)``.  Standard
-    deviations follow ``CLIP.initialize_parameters`` and, for convolutions,
-    He's rule, except where the configuration's ``init`` says otherwise:
-    ``positional_embedding_std`` (the text tower's; CLIP draws 0.01) and
-    ``bn3_weight`` (each bottleneck's last BatchNorm weight; CLIP starts it
-    at 0, so that each residual block starts as the identity)."""
+    std)``, ``("ones",)``, ``("zeros",)`` or ``("const", value)``.  The image
+    tower's leaves come from its module (``archs/<kind>.py``), then the text
+    tower's.  Standard deviations follow ``CLIP.initialize_parameters`` and,
+    for convolutions, He's rule, except where the configuration's ``init``
+    says otherwise (``positional_embedding_std``, the text tower's: CLIP
+    draws 0.01; the tower's own keys)."""
     init = init or {}
-    leaves = []
-
-    def ln(name, dim):
-        leaves.extend([(f"{name}.weight", (dim,), ("ones",)), (f"{name}.bias", (dim,), ("zeros",))])
-
-    def blocks(prefix, layers, width):
-        attn_std, proj_std, fc_std = width ** -0.5, width ** -0.5 * (2 * layers) ** -0.5, (2 * width) ** -0.5
-        for i in range(layers):
-            p = f"{prefix}.resblocks.{i}"
-            leaves.extend([
-                (f"{p}.attn.in_proj_weight", (3 * width, width), ("normal", attn_std)),
-                (f"{p}.attn.in_proj_bias", (3 * width,), ("zeros",)),
-                (f"{p}.attn.out_proj.weight", (width, width), ("normal", proj_std)),
-                (f"{p}.attn.out_proj.bias", (width,), ("zeros",)),
-                (f"{p}.mlp.c_fc.weight", (4 * width, width), ("normal", fc_std)),
-                (f"{p}.mlp.c_fc.bias", (4 * width,), ("zeros",)),
-                (f"{p}.mlp.c_proj.weight", (width, 4 * width), ("normal", proj_std)),
-                (f"{p}.mlp.c_proj.bias", (width,), ("zeros",))])
-            ln(f"{p}.ln_1", width)
-            ln(f"{p}.ln_2", width)
-
-    def bn(name, dim, weight=None):
-        if weight is not None:
-            leaves.extend([(f"{name}.weight", (dim,), ("const", weight)),
-                           (f"{name}.bias", (dim,), ("zeros",))])
-        else:
-            ln(name, dim)
-        leaves.extend([(f"{name}.running_mean", (dim,), ("zeros",)),
-                       (f"{name}.running_var", (dim,), ("ones",))])
-
-    def conv(name, cout, cin, k):
-        leaves.append((name, (cout, cin, k, k), ("normal", math.sqrt(2.0 / (cin * k * k)))))
-
-    embed, res = arch["embed_dim"], arch["image_resolution"]
-    if arch["kind"] == "vit":
-        w, p = arch["vision_width"], arch["vision_patch_size"]
-        grid = res // p
-        leaves.extend([
-            ("visual.class_embedding", (w,), ("normal", w ** -0.5)),
-            ("visual.positional_embedding", (grid * grid + 1, w), ("normal", w ** -0.5)),
-            ("visual.conv1.weight", (w, 3, p, p), ("normal", (3 * p * p) ** -0.5)),
-            ("visual.proj", (w, embed), ("normal", w ** -0.5))])
-        ln("visual.ln_pre", w)
-        ln("visual.ln_post", w)
-        blocks("visual.transformer", arch["vision_layers"], w)
-    else:
-        w = arch["vision_width"]
-        conv("visual.conv1.weight", w // 2, 3, 3)
-        conv("visual.conv2.weight", w // 2, w // 2, 3)
-        conv("visual.conv3.weight", w, w // 2, 3)
-        for i, dim in ((1, w // 2), (2, w // 2), (3, w)):
-            bn(f"visual.bn{i}", dim)
-        inplanes = w
-        for li, nblocks in enumerate(arch["vision_layers"]):
-            planes = w * 2 ** li
-            for bi in range(nblocks):
-                pre = f"visual.layer{li + 1}.{bi}"
-                conv(f"{pre}.conv1.weight", planes, inplanes, 1)
-                conv(f"{pre}.conv2.weight", planes, planes, 3)
-                conv(f"{pre}.conv3.weight", planes * 4, planes, 1)
-                for name, dim in (("bn1", planes), ("bn2", planes), ("bn3", planes * 4)):
-                    bn(f"{pre}.{name}", dim,
-                       init.get("bn3_weight", 0.0) if name == "bn3" else None)
-                if bi == 0 and (li > 0 or inplanes != planes * 4):
-                    conv(f"{pre}.downsample.0.weight", planes * 4, inplanes, 1)
-                    bn(f"{pre}.downsample.1", planes * 4)
-                inplanes = planes * 4
-        c = w * 32
-        grid = res // 32
-        leaves.append(("visual.attnpool.positional_embedding", (grid * grid + 1, c),
-                       ("normal", c ** -0.5)))
-        for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
-            out = embed if name == "c_proj" else c
-            leaves.extend([(f"visual.attnpool.{name}.weight", (out, c), ("normal", c ** -0.5)),
-                           (f"visual.attnpool.{name}.bias", (out,), ("zeros",))])
-    tw = arch["transformer_width"]
+    leaves = list(spec.load_arch(arch["kind"]).image_leaves(arch, init))
+    embed, tw = arch["embed_dim"], arch["transformer_width"]
     leaves.extend([
         ("token_embedding.weight", (arch["vocab_size"], tw), ("normal", 0.02)),
         ("positional_embedding", (arch["context_length"], tw),
          ("normal", init.get("positional_embedding_std", 0.01))),
         ("text_projection", (tw, embed), ("normal", tw ** -0.5)),
         ("logit_scale", (), ("const", arch["logit_scale"]))])
-    ln("ln_final", tw)
-    blocks("transformer", arch["transformer_layers"], tw)
-    return leaves
+    leaves += ln_leaves("ln_final", tw)
+    return leaves + block_leaves("transformer", arch["transformer_layers"], tw)
 
 
 def make_checkpoint(arch: dict, seed: int, device, init: dict = None) -> dict:

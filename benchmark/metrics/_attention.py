@@ -45,8 +45,8 @@ def bound_s(call: dict, which: str) -> float:
 
 def traced_calls(run) -> list:
     """The traced rounds' attention calls (``_flops.attention_calls``)."""
-    return attention_calls(run.config, run.traffic["classnames"], run.traced_rounds,
-                           run.batch_size, run.eval_batch_size)
+    return attention_calls(run.config, run.traffic, run.traced_rounds, run.batch_size,
+                           run.eval_batch_size)
 
 
 def kernel_times(run, which: str) -> list:

@@ -15,5 +15,5 @@ SOURCE = "host_clock"
 
 
 def read(run):
-    flops = round_flops(run.config, run.traffic["classnames"], run.rounds, run.batch_size)
+    flops = round_flops(run.config, run.traffic, run.rounds, run.batch_size)
     return 100.0 * flops / (run.window_s * FLOPS_PER_S["bf16"])

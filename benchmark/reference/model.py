@@ -1,8 +1,9 @@
-"""Plain PyTorch reference of the measured FairLoRA method: CLIP (ViT or
-ModifiedResNet image tower, the text transformer) read straight from an
-OpenAI-layout state dict, the multi-prompt learner, FairLoRA adapters whose
-singular values blend by the sample's demographic group, the loss, SGD and
-the EMA aggregation.
+"""Plain PyTorch reference of the measured FairLoRA method: CLIP (the image
+tower of the configuration's ``archs/<kind>.py`` after the front end of the
+traffic's ``modalities/<modality>.py``, the text transformer) read straight
+from an OpenAI-layout state dict, the multi-prompt learner, FairLoRA
+adapters whose singular values blend by the sample's demographic group, the
+loss, SGD and the EMA aggregation.
 
 It follows the published descriptions (Radford et al. 2021, arXiv:2103.00020,
 and OpenAI's ``clip/model.py``; FairFedMed's ``GLP_OT_SVLoRA`` trainer with
@@ -33,12 +34,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import spec
 from .tokenizer import tokenize
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)  # OpenAI CLIP's preprocessing
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 OWN_GROUP = 0.7  # FairLoRA: weight of the sample's own group in its singular values
-BN_MOMENTUM, BN_EPS, LN_EPS = 0.1, 1e-5, 1e-5
+LN_EPS = 1e-5
 FP8_MAX = 448.0  # largest finite float8 e4m3
 
 
@@ -83,14 +85,19 @@ def group_mix(attr: torch.Tensor, groups: int) -> torch.Tensor:
 
 class ReferenceCLIP:
     """CLIP with prompts and FairLoRA over an OpenAI state dict (fp32 on the
-    device).  ``method``: the configuration's method block."""
+    device), for a cell's configuration and traffic: the image tower by the
+    configuration's ``arch.kind``, the front end by the traffic's
+    ``modality``, the method by the configuration's method block."""
 
-    def __init__(self, sd: dict, classnames, method: dict, device, prec: str = "fp32"):
+    def __init__(self, sd: dict, config: dict, traffic: dict, device, prec: str = "fp32"):
         self.sd = {k: v.to(device=device, dtype=torch.float32) for k, v in sd.items()
                    if torch.is_tensor(v) and v.is_floating_point()}
         self.num = Numerics(prec)
         self.device = device
-        self.kind = "vit" if "visual.proj" in self.sd else "resnet"
+        self.tower = spec.load_arch(config["arch"]["kind"])
+        self.front = spec.load_modality(traffic["modality"])
+        self.per_sample = self.front.images_per_sample(traffic)
+        method, classnames = config["method"], traffic["classnames"]
         self.n_ctx, self.n_prompts = method["n_ctx"], method["num_prompt"]
         self.groups = method["groups"]
         self.scaling = method["lora_alpha"] / method["lora_rank"]
@@ -166,100 +173,23 @@ class ReferenceCLIP:
     def _count(self, prefix):
         return len({k[len(prefix) + 1:].split(".")[0] for k in self.sd if k.startswith(prefix + ".")})
 
-    def vit_tokens(self, x, state, mix):
-        sd = self.sd
-        width, patch = sd["visual.conv1.weight"].shape[0], sd["visual.conv1.weight"].shape[-1]
-        x = self.num.conv(x, sd["visual.conv1.weight"], stride=patch)  # [B, width, g, g]
-        x = x.flatten(2).transpose(1, 2)
-        x = torch.cat([sd["visual.class_embedding"].expand(x.shape[0], 1, width), x], dim=1)
-        x = self.layer_norm(x + sd["visual.positional_embedding"], "visual.ln_pre")
-        x = self.blocks(x, "visual.transformer", self._count("visual.transformer.resblocks"),
-                        width // 64, lora=state, mix=mix)
-        return self.num.mm(self.layer_norm(x, "visual.ln_post"), sd["visual.proj"])
-
-    def batch_norm(self, x, path, state, stats, train):
-        w, b = state[f"visual_bn.{path}.weight"], state[f"visual_bn.{path}.bias"]
-        run_mean, run_var = state[f"__bn_stats__.{path}.mean"], state[f"__bn_stats__.{path}.var"]
-        if train:
-            mean, var = x.mean(dim=(0, 2, 3)), x.var(dim=(0, 2, 3), unbiased=False)
-            n = x.numel() // x.shape[1]
-            stats[f"__bn_stats__.{path}.mean"] = (1 - BN_MOMENTUM) * run_mean + BN_MOMENTUM * mean.detach()
-            stats[f"__bn_stats__.{path}.var"] = ((1 - BN_MOMENTUM) * run_var
-                                                 + BN_MOMENTUM * var.detach() * n / (n - 1))
-        else:
-            mean, var = run_mean, run_var
-        y = (x - mean[None, :, None, None]) / torch.sqrt(var[None, :, None, None] + BN_EPS)
-        return y * w[None, :, None, None] + b[None, :, None, None]
-
-    def conv1x1_lora(self, x, weight, key, state, mix):
-        y = self.num.conv(x, weight)
-        a = state[f"image_encoder_lora.{key}.lora_A"]
-        s = mix @ state[f"image_encoder_lora.{key}.lora_S"]
-        h = self.num.mm(x.permute(0, 2, 3, 1), a) * s[:, None, None, :]
-        return y + self.num.mm(h, state[f"image_encoder_lora.{key}.lora_B"]).permute(0, 3, 1, 2) * self.scaling
-
-    def resnet_tokens(self, x, state, mix, train):
-        sd, stats = self.sd, {}
-        for i, stride in ((1, 2), (2, 1), (3, 1)):
-            x = self.num.conv(x, sd[f"visual.conv{i}.weight"], stride=stride, padding=1)
-            x = F.relu(self.batch_norm(x, f"stem.bn{i}", state, stats, train))
-        x = F.avg_pool2d(x, 2)
-        for layer in range(1, 5):
-            for blk in range(self._count(f"visual.layer{layer}")):
-                pre, path = f"visual.layer{layer}.{blk}", f"layer{layer}.{blk}"
-                stride = 2 if layer > 1 and blk == 0 else 1
-                out = self.conv1x1_lora(x, sd[f"{pre}.conv1.weight"], f"{path}.conv1", state, mix)
-                out = F.relu(self.batch_norm(out, f"{path}.bn1", state, stats, train))
-                out = self.num.conv(out, sd[f"{pre}.conv2.weight"], padding=1)
-                out = F.relu(self.batch_norm(out, f"{path}.bn2", state, stats, train))
-                if stride > 1:
-                    out = F.avg_pool2d(out, stride)
-                out = self.conv1x1_lora(out, sd[f"{pre}.conv3.weight"], f"{path}.conv3", state, mix)
-                out = self.batch_norm(out, f"{path}.bn3", state, stats, train)
-                if f"{pre}.downsample.0.weight" in sd:
-                    idn = F.avg_pool2d(x, stride) if stride > 1 else x
-                    idn = self.num.conv(idn, sd[f"{pre}.downsample.0.weight"])
-                    idn = self.batch_norm(idn, f"{path}.downsample_bn", state, stats, train)
-                else:
-                    idn = x
-                x = F.relu(out + idn)
-        return self.attention_pool(x, state), stats
-
-    def attention_pool(self, x, state):
-        """CLIP's AttentionPool2d with every token as a query (the method's
-        variant returns all tokens), plain LoRA on the four projections."""
-        sd, pre = self.sd, "visual.attnpool"
-        b, c = x.shape[:2]
-        t = x.flatten(2).transpose(1, 2)
-        t = torch.cat([t.mean(1, keepdim=True), t], dim=1) + sd[f"{pre}.positional_embedding"]
-        heads = c // 64
-
-        def proj(name, inp):
-            out = self.num.linear(inp, sd[f"{pre}.{name}.weight"], sd[f"{pre}.{name}.bias"])
-            return out + self.lora(inp, state[f"attnpool_lora.{name}.lora_A"], None,
-                                   state[f"attnpool_lora.{name}.lora_B"])
-
-        length = t.shape[1]
-        q, k, v = (proj(n, t).reshape(b, length, heads, c // heads).transpose(1, 2)
-                   for n in ("q_proj", "k_proj", "v_proj"))
-        att = (self.num.mm(q, k.transpose(-1, -2)) / math.sqrt(c // heads)).softmax(-1)
-        out = self.num.mm(att, v).transpose(1, 2).reshape(b, length, c)
-        return proj("c_proj", out)
-
     # ------------------------------------------------------------ model
-    def logits(self, state: dict, img_u8: torch.Tensor, attr: torch.Tensor, train: bool):
-        """(logits [B, n_cls], new BatchNorm statistics or {}): images uint8
-        [B, 3, H, W] as the dataset gives them, ``attr`` the group ids."""
-        x = (img_u8.float() / 255.0 - self.mean) / self.std
+    def logits(self, state: dict, img: torch.Tensor, attr: torch.Tensor, train: bool):
+        """(logits [B, n_cls], new BatchNorm statistics or {}): ``img`` the
+        B samples as the dataset gives them, ``attr`` the group ids.  The
+        modality's front end makes ``per_sample`` normalised images of each
+        sample, which share its group mix and whose logits are averaged."""
+        x = self.front.front(self, img, state)
         mix = group_mix(attr, self.groups)
-        stats = {}
-        if self.kind == "vit":
-            tokens = self.vit_tokens(x, state, mix)
-        else:
-            tokens, stats = self.resnet_tokens(x, state, mix, train)
+        if self.per_sample > 1:
+            mix = mix.repeat_interleave(self.per_sample, dim=0)
+        tokens, stats = self.tower.tokens(self, x, state, mix, train)
         image = normalize(tokens[:, 1:]).mean(1)  # mean over patches of unit features
         text = self.text_features(state["prompt_learner.ctx"]).mean(0)  # mean over prompts
-        return self.sd["logit_scale"].exp() * image @ text.T, stats
+        logits = self.sd["logit_scale"].exp() * image @ text.T
+        if self.per_sample > 1:
+            logits = logits.reshape(attr.shape[0], self.per_sample, -1).mean(1)
+        return logits, stats
 
 
 def trainable_keys(state: dict) -> list:

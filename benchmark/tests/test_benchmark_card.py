@@ -11,7 +11,7 @@ from benchmark.control import control_readings
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["vit_slo_fairlora", "rn50_slo_fairlora"])
+@pytest.mark.parametrize("name", ["vit_slo_fairlora", "rn50_slo_fairlora", "vit_oct_fairlora"])
 def test_control_is_not_correct(name, card, tmp_path):
     cell = spec.load_cell(name)
     run = harness.run_cell(cell, 2 ** 31 + 101, 3.0, False, "cuda", str(tmp_path / "work"),

@@ -23,6 +23,8 @@ from benchmark.timeline import TraceView
 
 DATA = spec.HERE / "tests" / "data"
 NAMES = ["NOT Glaucoma", "Glaucoma"]
+SLO = spec.load_json(spec.HERE / "traffic" / "slo_fundus.json")
+OCT = spec.load_json(spec.HERE / "traffic" / "oct_bscans.json")
 
 
 def _config(name):
@@ -36,8 +38,13 @@ def test_vit_b16_by_hand():
     # projection T x D x 512
     assert 196 * 768 * 768 + 12 * (12 * t * d * d + 2 * t * t * d + 10 * t * d * r) \
         + t * d * 512 == 17_858_390_016
-    assert _flops.vit_macs(_config("clip_vit_b16_fairlora")["arch"], r) == (17_858_390_016,
-                                                                          17_625_378_816)
+    vit = spec.load_arch("vit")
+    arch = _config("clip_vit_b16_fairlora")["arch"]
+    assert vit.image_macs(arch, r) == (17_858_390_016, 17_625_378_816)
+    # images that take a gradient (a trainable front end): every layer's full
+    # backward (12 T D^2 + 4 T^2 D + 20 T D r) and the patch embedding's
+    assert vit.image_macs(arch, r, input_grad=True)[1] == 196 * 768 * 768 + 12 * (
+        12 * t * d * d + 4 * t * t * d + 20 * t * d * r) + t * d * 512
 
 
 def test_attention_bounds_by_hand():
@@ -53,21 +60,26 @@ def test_attention_bounds_by_hand():
         4 * 64 * 4096 ** 2 * 64 * (4097 / 8192) / 989e12)
 
 
-def _trainable(arch, method):
+def _leaf(*shape, fill=None):
+    t = torch.randn(shape) if fill is None else torch.full(shape, fill)
+    return t.requires_grad_(True)
+
+
+def _vit_state(arch, method):
     r, g = method["lora_rank"], method["groups"]
     state = {}
+    n, d = arch["vision_layers"], arch["vision_width"]
+    for part, (i, o) in (("c_fc", (d, 4 * d)), ("c_proj", (4 * d, d))):
+        state[f"image_encoder_lora.{part}.lora_A"] = _leaf(n, i, r)
+        state[f"image_encoder_lora.{part}.lora_S"] = _leaf(n, g, r)
+        state[f"image_encoder_lora.{part}.lora_B"] = _leaf(n, r, o)
+    return state
 
-    def leaf(*shape, fill=None):
-        t = torch.randn(shape) if fill is None else torch.full(shape, fill)
-        return t.requires_grad_(True)
 
-    if arch["kind"] == "vit":
-        n, d = arch["vision_layers"], arch["vision_width"]
-        for part, (i, o) in (("c_fc", (d, 4 * d)), ("c_proj", (4 * d, d))):
-            state[f"image_encoder_lora.{part}.lora_A"] = leaf(n, i, r)
-            state[f"image_encoder_lora.{part}.lora_S"] = leaf(n, g, r)
-            state[f"image_encoder_lora.{part}.lora_B"] = leaf(n, r, o)
-        return state
+def _resnet_state(arch, method):
+    r, g = method["lora_rank"], method["groups"]
+    state = {}
+    leaf = _leaf
     w = arch["vision_width"]
 
     def bn(path, dim):
@@ -98,37 +110,65 @@ def _trainable(arch, method):
     return state
 
 
-@pytest.mark.parametrize("name", ["clip_vit_b16_fairlora", "clip_rn50_fairlora"])
-def test_image_tower_counts_match_torch(name):
+@pytest.mark.parametrize("name,state_of,input_grad", [
+    ("clip_vit_b16_fairlora", _vit_state, False), ("clip_vit_b16_fairlora", _vit_state, True),
+    ("clip_rn50_fairlora", _resnet_state, False), ("clip_rn50_fairlora", _resnet_state, True)],
+    ids=["vit", "vit_input_grad", "resnet", "resnet_input_grad"])
+def test_image_tower_counts_match_torch(name, state_of, input_grad):
     config = _config(name)
     arch, method = config["arch"], config["method"]
+    tower = spec.load_arch(arch["kind"])
     sd = {k: torch.randn(shape) * 0.02 if shape else torch.tensor(4.6)
           for k, shape, _ in inputs.checkpoint_leaves(arch)}
-    model = ref.ReferenceCLIP(sd, ["NOT Glaucoma", "Glaucoma"], method, "cpu")
-    state = _trainable(arch, method)
+    model = ref.ReferenceCLIP(sd, config, SLO, "cpu")
+    state = state_of(arch, method)
     x, mix = torch.randn(2, 3, 224, 224), ref.group_mix(torch.tensor([0, 1]), method["groups"])
+    x.requires_grad_(input_grad)
     with FlopCounterMode(display=False) as fwd_count:
-        if arch["kind"] == "vit":
-            tokens = model.vit_tokens(x, state, mix)
-        else:
-            tokens, _ = model.resnet_tokens(x, state, mix, train=True)
+        tokens, _ = tower.tokens(model, x, state, mix, True)
     with FlopCounterMode(display=False) as bwd_count:
         tokens.sum().backward()
-    want = (_flops.vit_macs if arch["kind"] == "vit" else _flops.resnet_macs)(arch, method["lora_rank"])
+    want = tower.image_macs(arch, method["lora_rank"], input_grad)
     # two images at 2 FLOPs a multiply-add; the group mix's own tiny product is all that differs
     assert fwd_count.get_total_flops() / 4 == pytest.approx(want[0], rel=1e-5)
     assert bwd_count.get_total_flops() / 4 == pytest.approx(want[1], rel=1e-5)
 
 
+def test_oct_front_counts_match_torch():
+    """The slice projector a volume: its forward, and its weight gradient
+    alone (the volumes are data), against PyTorch's count."""
+    oct_ = spec.load_modality("oct_bscans")
+    model = ref.ReferenceCLIP({"token_embedding.weight": torch.zeros(49408, 8),
+                               "positional_embedding": torch.zeros(77, 8)},
+                              _config("clip_vit_b16_fairlora"), OCT, "cpu")
+    state = {"proj_per_3d_slice.weight": _leaf(3, 16, 5, 5), "proj_per_3d_slice.bias": _leaf(3)}
+    img = torch.rand(2, 32, 224, 224) * 255
+    with FlopCounterMode(display=False) as fwd_count:
+        x = oct_.front(model, img, state)
+    with FlopCounterMode(display=False) as bwd_count:
+        x.sum().backward()
+    assert x.shape == (4, 3, 224, 224)
+    assert oct_.front_macs(OCT) == (2 * 224 * 224 * 3 * 16 * 25,) * 2
+    assert fwd_count.get_total_flops() / 4 == oct_.front_macs(OCT)[0]
+    assert bwd_count.get_total_flops() / 4 == oct_.front_macs(OCT)[1]
+
+
 def test_round_flops_counts_steps_and_valid_rows():
     config = _config("clip_vit_b16_fairlora")
     names = ["NOT Glaucoma", "Glaucoma"]
-    image = _flops.vit_macs(config["arch"], 12)
+    image = spec.load_arch("vit").image_macs(config["arch"], 12)
     text = _flops.text_macs(config["arch"], config["method"], names)
     rounds = [{"n_steps": [16, 16], "eval_rows": 600, "eval_batches": 6}]
     want = 2 * (32 * 32 * sum(image) + 32 * sum(text) + 600 * image[0] + 6 * text[0])
-    assert _flops.round_flops(config, names, rounds, 32) == want
+    assert _flops.round_flops(config, SLO, rounds, 32) == want
     assert _flops.text_length(tuple(names), 4) == 10  # SOT X X X X not glaucoma . EOT
+    # OCT: two images a volume, each taking a gradient, and the slice projector
+    image = spec.load_arch("vit").image_macs(config["arch"], 12, input_grad=True)
+    front = 2 * 224 * 224 * 3 * 16 * 25
+    rounds = [{"n_steps": [3, 3], "eval_rows": 96, "eval_batches": 3}]
+    want = 2 * (6 * 32 * (2 * front + 2 * sum(image)) + 6 * sum(text)
+                + 96 * (front + 2 * image[0]) + 3 * text[0])
+    assert _flops.round_flops(config, OCT, rounds, 32) == want
 
 
 class AttentionCalls:
@@ -169,8 +209,10 @@ def _functions():
             for attr, obj in vars(mod).items() if callable(obj)}
 
 
-@pytest.mark.parametrize("kind", ["vit", "rn"])
-def test_attention_calls_equal_the_intercepted(kind, tmp_path, monkeypatch):
+@pytest.mark.parametrize("kind,traffic,vision", [("vit", "slo", True), ("rn", "slo", False),
+                                                  ("vit", "oct", True)],
+                         ids=["vit_slo", "rn_slo", "vit_oct"])
+def test_attention_calls_equal_the_intercepted(kind, traffic, vision, tmp_path, monkeypatch):
     """Two traced rounds with their evaluations at a tiny size: the calls
     worked out from the configuration equal, call for call, those caught
     in the program's attention entry over the same rounds; and the harness
@@ -180,9 +222,10 @@ def test_attention_calls_equal_the_intercepted(kind, tmp_path, monkeypatch):
 
     bench = {"configs": [{"name": f"tiny_{kind}",
                           "file": f"benchmark/tests/data/configs/tiny_{kind}.json"}],
-             "workloads": [{"name": f"tiny_{kind}_slo", "config": f"tiny_{kind}",
-                            "traffic": "tiny_slo", "chips": 1}], "end_to_end": [], "per_layer": []}
-    cell = spec.load_cell(f"tiny_{kind}_slo", bench, root=DATA)
+             "workloads": [{"name": f"tiny_{kind}_{traffic}", "config": f"tiny_{kind}",
+                            "traffic": f"tiny_{traffic}", "chips": 1}], "end_to_end": [],
+             "per_layer": []}
+    cell = spec.load_cell(f"tiny_{kind}_{traffic}", bench, root=DATA)
     cell.workload = {**cell.workload, "trace_rounds": 2}
     before, original = _functions(), clip_model.flash_attention
     calls, at_trace = [], []
@@ -205,7 +248,7 @@ def test_attention_calls_equal_the_intercepted(kind, tmp_path, monkeypatch):
 
     assert len(run.traced_rounds) == 2
     assert all(sum(r["n_steps"]) > 0 and r["eval_batches_run"] > 0 for r in run.traced_rounds)
-    derived = _flops.attention_calls(cell.config, cell.traffic["classnames"], run.traced_rounds,
+    derived = _flops.attention_calls(cell.config, cell.traffic, run.traced_rounds,
                                      run.batch_size, run.eval_batch_size)
 
     def key(call):
@@ -213,12 +256,12 @@ def test_attention_calls_equal_the_intercepted(kind, tmp_path, monkeypatch):
 
     assert Counter(map(key, derived)) == Counter(map(key, calls))
     assert {c["backward"] for c in calls} == {True, False}
-    assert {c["causal"] for c in calls} == ({True, False} if kind == "vit" else {True})
+    assert {c["causal"] for c in calls} == ({True, False} if vision else {True})
 
 
 def _vit_run(rounds, ops):
     return types.SimpleNamespace(
-        config=_config("clip_vit_b16_fairlora"), traffic={"classnames": NAMES}, batch_size=32,
+        config=_config("clip_vit_b16_fairlora"), traffic=SLO, batch_size=32,
         eval_batch_size=100, traced_rounds=rounds,
         trace=TraceView(window_s=1.0, busy_s=0.5, ops=ops, gaps=[], device_ops=[]))
 

@@ -10,7 +10,7 @@ from pathlib import Path
 
 import pytest
 
-from benchmark import check, spec
+from benchmark import check, harness, inputs, spec
 
 BENCH = spec.load_json(spec.BENCHMARK_JSON)
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -87,10 +87,17 @@ def test_cell_files(name):
     cell = spec.load_cell(name)
     assert set(cell.workload["limits"]) == set(check.NUMBERS)
     assert cell.workload["trace_rounds"] >= 1
+    assert cell.workload["check_round"] in (1, 2, 3)
     config = next(c for c in BENCH["configs"] if c["name"] == cell.entry["config"])
     assert cell.config["name"] == config["name"] and cell.config["reduced"] == config["reduced"]
     assert (spec.REPO / cell.config["launcher"]).exists()
-    assert cell.config["arch"]["kind"] in ("vit", "resnet")
+    arch, modality = spec.load_arch(cell.config["arch"]["kind"]), spec.load_modality(
+        cell.traffic["modality"])
+    for part in ("image_leaves", "image_macs", "attention", "tokens"):
+        assert callable(getattr(arch, part))
+    for part in ("make_split", "npz_members", "fed", "images_per_sample", "front_macs", "front"):
+        assert callable(getattr(modality, part))
+    assert isinstance(modality.TRAINABLE_FRONT, bool)
     assert "assumed" in cell.config and cell.traffic["dataset"] == "FairFedMed"
 
 
@@ -104,7 +111,7 @@ def test_metric_readers(entry):
     assert callable(mod.read)
 
 
-def test_a_new_cell_config_and_metric_are_files(tmp_path):
+def test_a_new_cell_config_and_metric_are_files(tmp_path, monkeypatch):
     """A throwaway cell, configuration, traffic and metric, added as files and
     entries, load through the harness's look-up without an edit to it."""
     harness_files = {p: p.read_bytes() for p in spec.HERE.rglob("*.py")}
@@ -130,9 +137,30 @@ def test_a_new_cell_config_and_metric_are_files(tmp_path):
     cell = spec.load_cell("extra_cell", bench, root=tmp_path)
     assert cell.config["name"] == "extra_cfg"
     assert [m["name"] for m in cell.per_layer][-1] == "extra_metric"
-    assert spec.load_metric("extra_metric", root=tmp_path).read(None) == 42.0
+    monkeypatch.setattr(spec, "PLUGIN_ROOTS", [tmp_path, spec.HERE])
+    assert spec.load_metric("extra_metric").read(None) == 42.0
     assert "extra_metric" not in [m["name"] for m in spec.load_cell("vit_slo_fairlora", bench).per_layer]
     assert harness_files == {p: p.read_bytes() for p in spec.HERE.rglob("*.py")}
+
+
+def test_oct_cell_runs_the_oct_launcher():
+    """The OCT cell's configuration (the SLO launcher) with its traffic's
+    flags parses to what ``scripts/fairfedlora_fairfedmed_oct.sh`` runs,
+    flag for flag."""
+    from fairfedmed_tpu_torch import federated_main as fm
+
+    cell = spec.load_cell("vit_oct_fairlora")
+    argv = harness.build_argv(cell, "/data", "/out", 5)
+    want = inputs.launcher_flags(str(spec.REPO / "scripts" / "fairfedlora_fairfedmed_oct.sh"))
+    for flag, value in {"--root": "/data", "--output-dir": "/out", "--seed": "5",
+                        **cell.config["flags"]}.items():
+        want = inputs.set_flag(want, flag, value)
+    for flag in ("--config-file", "--dataset-config-file"):
+        want[want.index(flag) + 1] = str(spec.REPO / want[want.index(flag) + 1])
+    parser = fm.build_arg_parser()
+    assert vars(parser.parse_args(argv)) == vars(parser.parse_args(want))
+    assert cell.traffic["flags"]["--dim_per_3d_slice"] == str(cell.traffic["dim_per_3d_slice"])
+    assert spec.load_modality("oct_bscans").images_per_sample(cell.traffic) == 2
 
 
 def _loaded_top_levels(code: str) -> set:
