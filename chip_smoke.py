@@ -16,9 +16,12 @@ Phases, each printing one JSON line:
    backward) against its plain PyTorch version at the paths' shapes (the
    SLO and OCT vision batches, the text tower, and the widest text shapes:
    PromptFL on CIFAR-100 and the CLI's default run on Caltech101, at their
-   EOT-cut lengths), fp32 (TF32 off) and bf16, with the max error beside
-   its tolerance; times of the kernel, the plain version and
-   ``scaled_dot_product_attention`` (a yardstick the port never calls).
+   EOT-cut lengths, and EVA02-CLIP-L/14-336's 577 tokens, its long-L
+   path), fp32 (TF32 off) and bf16, with the max error beside its
+   tolerance; times of the kernel, the plain version and
+   ``scaled_dot_product_attention`` (a yardstick the port never calls);
+   then the RoPE head split (``ops/rope.py``) each way at EVA02's training
+   and evaluation batches in bf16 against its plain version, timed alike.
    Times are device time from torch.profiler (the kernels' summed
    durations), warm (one input set, resident in L2) and L2-cold (rotating
    over input sets that together exceed 4x the L2); beside them, CUDA events
@@ -97,6 +100,9 @@ Phases, each printing one JSON line:
      from the device caches; oct_path's host data time beside it) and
      ``parallel_rn50_path`` (1 round; every client's ``__bn_stats__`` finite
      and moved);
+   - ``eva02_path``: fairfedlora_fairfedmed_eva02.sh (EVA02-CLIP-L/14-336,
+     seeded weights) on an SLO fixture at 336 px, 2 rounds: attention and
+     RoPE launches, every local step a graph replay, adapters on w1/w2/w3;
    - ``parallel_branches``: promptfl_fedchexmimic.sh and
      fedotp_fedchexmimic.sh (every plan valid), 2 rounds, and
      fairfedlora_fedchexmimic_local.sh and the PromptFL flags with
@@ -195,18 +201,20 @@ Phases, each printing one JSON line:
    and host seconds of the state gather, launches.  Where 2 or more cards
    are visible, the same through torchrun with NCCL, one wait per round.
    Phase names given as arguments run only those phases after the kernel
-   checks (a debugging aid: no kernels line and no final ``ok`` line).
+   checks (a debugging aid: the kernels line counts only their launches,
+   and no final ``ok`` line).
 
 Every path zeroes the kernel launch counters just before it runs and reads
 them just after; the counts must equal what the layer structure implies.
 A local step replayed from a CUDA graph counts, for each replay, the
-attention kernels that a profiled replay of its graph runs on the device
+attention (and RoPE) kernels that a profiled replay of its graph runs on the device
 (``kernel_launches``), the Python counters seeing no replay; the capture's
 own eager runs, which train nothing, are taken off (a ``graph_replays``
 line gives the parts).
 Then the ``kernels`` line (both kernels at the vision training shape and at
 ``text_caltech``; ``launches`` from main_path, ``launches_<path>`` from each
-other path; with each tensor-core kernel's registers and spills
+other path; the RoPE kernels at EVA02's training shape with eva02_path's
+launches; with each kernel's registers and spills
 from ptxas, its shared memory and waves from the CUDA runtime, and its bound
 share from the cold time), the total time, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``.  Any failure raises: the
@@ -243,6 +251,7 @@ from fairfedmed_tpu_torch.fed.aggregate import average_weights_ema
 from fairfedmed_tpu_torch.fed.parallel_driver import ROUND_CKPT_ENV, ParallelRoundRunner
 from fairfedmed_tpu_torch.ops import _build
 from fairfedmed_tpu_torch.ops import attention as A
+from fairfedmed_tpu_torch.ops import rope as R
 from fairfedmed_tpu_torch.ops.sinkhorn import entropic_cot, sinkhorn
 from fairfedmed_tpu_torch.train.checkpoint import TREE_FILE, load_pytree
 from fairfedmed_tpu_torch.train.engine import build_trainer
@@ -263,6 +272,7 @@ SCRIPT = os.path.join(REPO, "scripts", "fairfedlora_fairfedmed.sh")
 OCT_SCRIPT = os.path.join(REPO, "scripts", "fairfedlora_fairfedmed_oct.sh")
 RN50_SCRIPT = os.path.join(REPO, "scripts", "fairfedlora_fairfedmed_rn50.sh")
 RN50_OCT_SCRIPT = os.path.join(REPO, "scripts", "fairfedlora_fairfedmed_oct_rn50.sh")
+EVA02_SCRIPT = os.path.join(REPO, "scripts", "fairfedlora_fairfedmed_eva02.sh")
 PROMPTFL_SCRIPT = os.path.join(REPO, "scripts", "fedchexmimic", "promptfl_fedchexmimic.sh")
 FEDOTP_SCRIPT = os.path.join(REPO, "scripts", "fedchexmimic", "fedotp_fedchexmimic.sh")
 LOCAL_SCRIPT = os.path.join(REPO, "scripts", "fedchexmimic", "fairfedlora_fedchexmimic_local.sh")
@@ -427,7 +437,13 @@ KERNEL_SHAPES = {  # name: (n = batch*heads, L, dh, causal)
     # PromptFL / CLIP: 1 prompt x 2 classes x 8 heads, "X X X X NOT
     # Glaucoma." cut after its EOT at 10 tokens, rounded up to 16
     "text_promptfl": (16, 16, 64, True),
+    # EVA02-CLIP-L/14-336: 16 heads of 64 over 577 tokens (the long-L path),
+    # the step's 32 images and the evaluation's batches of 100
+    "eva02_train": (32 * 16, 577, 64, False),
+    "eva02_eval": (100 * 16, 577, 64, False),
 }
+# the RoPE head split (ops/rope.py) at the same EVA02 steps: (B, L, heads, dh)
+ROPE_SHAPES = {"rope_eva02_train": (32, 577, 16, 64), "rope_eva02_eval": (100, 577, 16, 64)}
 
 
 def _bounds_ms(n, length, dh, dtype, causal):
@@ -540,6 +556,68 @@ def check_kernels(dev):
                 row.update({"fwd_bound_ms": bounds["fwd"][0], "fwd_bound_by": bounds["fwd"][1],
                             "bwd_bound_ms": bounds["bwd"][0], "bwd_bound_by": bounds["bwd"][1]})
             rows.append(row)
+        torch.cuda.empty_cache()  # the EVA02 shapes' references hold GBs
+    return rows + check_rope(dev, gen)
+
+
+def check_rope(dev, gen):
+    """The RoPE head-split kernels at ``ROPE_SHAPES`` in bf16 (the main
+    path's type), each direction against its plain version, then timed as
+    the attention kernels are: device ms warm and L2-cold, CUDA events, host
+    enqueue, the plain version's device ms, and the bound (bytes over the
+    HBM rate: [B, L, 3D] read and three [B*H, L, dh] written, each way)."""
+    from fairfedmed_tpu_torch.models import eva_clip
+
+    dtype = torch.bfloat16
+    cos, sin = eva_clip.rope_tables(eva_clip.EVAConfig(), dev)
+    rows = []
+    for shape_name, (b, length, heads, dh) in ROPE_SHAPES.items():
+        d = heads * dh
+        set_bytes = 2 * 3 * b * length * d * torch.tensor([], dtype=dtype).element_size()
+
+        def make():
+            qkv = torch.randn(b, length, 3 * d, device=dev, generator=gen).to(dtype)
+            grads = [torch.randn(b * heads, length, dh, device=dev, generator=gen).to(dtype)
+                     for _ in range(3)]
+            return qkv, grads
+
+        qkv, grads = make()
+        got = R.rope_qkv_fwd(qkv, cos, sin, heads)
+        dqkv = R.rope_qkv_bwd(*grads, cos, sin, heads)
+        torch.cuda.synchronize()
+        errs = {}
+        for kind, pairs in (("fwd", zip(got, R.reference_rope_qkv(qkv, cos, sin, heads))),
+                            ("bwd", [(dqkv, R.reference_rope_qkv_bwd(*grads, cos, sin, heads))])):
+            # one bf16 rounding of either side's fp32 value, which differ by
+            # FMA contraction alone (a few fp32 ulps of the largest input)
+            errs[kind] = max(((g.float() - r.float()).abs() - 2 ** -7 * r.float().abs()).max()
+                             .item() for g, r in pairs)
+        tol = 1e-6 * max(t.float().abs().max().item() for t in [qkv, *grads])
+        if not max(errs.values()) <= tol:
+            raise AssertionError(f"{shape_name}: errors beyond 2^-7 of each value {errs} > {tol}")
+        sets = [(qkv, grads)] + [make() for _ in range(max(1, math.ceil(4 * L2_BYTES / set_bytes)))]
+        bound = set_bytes / HBM_BYTES_PER_S * 1e3
+        row = {"shape": shape_name, "kernel": "rope_qkv", "B_L_H_dh": [b, length, heads, dh],
+               "dtype": "bfloat16", "input_sets_cold": len(sets), "tol": tol}
+
+        def fwd(s=sets[0]):
+            return R.rope_qkv_fwd(s[0], cos, sin, heads)
+
+        def bwd(s=sets[0]):
+            return R.rope_qkv_bwd(*s[1], cos, sin, heads)
+
+        for kind, fn, plain in (("fwd", fwd, lambda: R.reference_rope_qkv(qkv, cos, sin, heads)),
+                                ("bwd", bwd,
+                                 lambda: R.reference_rope_qkv_bwd(*grads, cos, sin, heads))):
+            row.update({f"{kind}_err_beyond_rtol": errs[kind], f"{kind}_bound_ms": bound,
+                        f"{kind}_bound_by": "bytes", f"kernel_{kind}_ms": device_ms([fn]),
+                        f"kernel_{kind}_ms_cold": device_ms([lambda s=s: fn(s) for s in sets]),
+                        f"kernel_{kind}_ms_events": cuda_ms(fn),
+                        f"kernel_{kind}_host_ms": host_ms(fn),
+                        f"plain_{kind}_ms": device_ms([plain])})
+        rows.append(row)
+        del sets, qkv, grads, got, dqkv
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -856,26 +934,33 @@ GRAPH_CELLS = ("vit_slo_fairlora", "rn50_slo_fairlora")
 
 # the kernels that begin each attention call on the device: the forward's
 # one kernel, and the backward's first (its tensor-core kernels are one
-# kernel a call; the plain path starts with its delta kernel)
+# kernel a call, but two beyond 4 tiles: the keys' phase (MODE 1), counted,
+# then the queries' (MODE 2); the plain path starts with its delta kernel)
 ATTN_KERNELS = {"attention_fwd": re.compile(r"attention_fwd(_packed|_wgmma)?_kernel"),
-                "attention_bwd": re.compile(r"attention_bwd_(wgmma|packed|delta)_kernel")}
+                "attention_bwd": re.compile(r"attention_bwd_(wgmma_kernel<\d+, [013]>|packed_kernel"
+                                            r"|delta_kernel)")}
+# the RoPE head split's one kernel each way (EVA02's tower only)
+ROPE_KERNELS = {"rope_qkv_fwd": re.compile(r"rope_qkv_fwd"),
+                "rope_qkv_bwd": re.compile(r"rope_qkv_bwd")}
+COUNTERS = {"attention_fwd": A.attention_fwd, "attention_bwd": A.attention_bwd,
+            "rope_qkv_fwd": R.rope_qkv_fwd, "rope_qkv_bwd": R.rope_qkv_bwd}
 
 
 @contextlib.contextmanager
 def counting_captures():
     """While open, each CUDA-graph capture of the port's local step
-    (``GraphedStep._capture``) records on its graph's entry the attention
-    calls that its eager runs (the warm-ups and the captured run, which
-    train nothing) made by the Python counters, as ``capture_calls``.
+    (``GraphedStep._capture``) records on its graph's entry the calls of
+    each kernel of ``COUNTERS`` that its eager runs (the warm-ups and the
+    captured run, which train nothing) made, as ``capture_calls``.
     ``GraphedStep._capture`` is restored on leaving."""
     from fairfedmed_tpu_torch.train import graphed
 
     capture = graphed.GraphedStep._capture
 
     def counted(self, *args):
-        before = {k: getattr(A, k).launches for k in ATTN_KERNELS}
+        before = {k: f.launches for k, f in COUNTERS.items()}
         entry = capture(self, *args)
-        entry.capture_calls = {k: getattr(A, k).launches - n for k, n in before.items()}
+        entry.capture_calls = {k: COUNTERS[k].launches - n for k, n in before.items()}
         return entry
 
     graphed.GraphedStep._capture = counted
@@ -885,11 +970,11 @@ def counting_captures():
         graphed.GraphedStep._capture = capture
 
 
-def replay_calls(graph, passes=3) -> list:
-    """The attention calls one replay of ``graph`` makes, counted from the
-    device traces of ``passes`` profiled replays (``ATTN_KERNELS``), one
-    dict a pass.  A profiled pass may miss kernels (a first pass may record
-    none at all), never add one: the most a pass counts is the replay's."""
+def replay_calls(graph, kernels=ATTN_KERNELS, passes=3) -> list:
+    """The calls of ``kernels`` one replay of ``graph`` makes, counted from
+    the device traces of ``passes`` profiled replays, one dict a pass.  A
+    profiled pass may miss kernels (a first pass may record none at all),
+    never add one: the most a pass counts is the replay's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -900,12 +985,13 @@ def replay_calls(graph, passes=3) -> list:
             graph.replay()
             torch.cuda.synchronize()
         names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-        counts.append({k: sum(bool(p.search(n)) for n in names) for k, p in ATTN_KERNELS.items()})
+        counts.append({k: sum(bool(p.search(n)) for n in names) for k, p in kernels.items()})
     return counts
 
 
-def kernel_launches(runner=None, path=None) -> dict:
-    """The attention calls of a run.  The Python counters count the eager
+def kernel_launches(runner=None, path=None, kernels=ATTN_KERNELS) -> dict:
+    """The calls of ``kernels`` (by default the attention kernels) in a
+    run.  The Python counters count the eager
     calls, a graph capture's among them (``counting_captures``); those
     are taken off, and each graph of ``runner``'s local steps adds its
     replays times the calls that one replay makes on the device
@@ -913,12 +999,12 @@ def kernel_launches(runner=None, path=None) -> dict:
     run: the state it changes is no longer read).  Each capture's eager runs must have made what one replay makes,
     run for run.  Where a step was graphed, prints a ``graph_replays`` line
     with each graph's replays, calls a replay and the capture's calls."""
-    out = {k: getattr(A, k).launches for k in ATTN_KERNELS}
+    out = {k: COUNTERS[k].launches for k in kernels}
     graphs = []
     for step in (runner._steps.values() if runner is not None else ()):
         for g in getattr(step, "graphs", {}).values():
-            passes = replay_calls(g.graph)
-            per_replay = {k: max(c[k] for c in passes) for k in ATTN_KERNELS}
+            passes = replay_calls(g.graph, kernels)
+            per_replay = {k: max(c[k] for c in passes) for k in kernels}
             graphs.append({"replays": g.replays, "calls_a_replay": per_replay,
                            "profiled_passes": passes, "capture_runs": g.runs,
                            "capture_calls": g.capture_calls})
@@ -1316,8 +1402,8 @@ def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     start_mem = torch.cuda.memory_allocated()  # what earlier phases still hold
-    A.attention_fwd.launches = 0
-    A.attention_bwd.launches = 0
+    for counter in COUNTERS.values():
+        counter.launches = 0
     t0 = time.perf_counter()
     try:
         with open(console_path, "w") as console:
@@ -1338,9 +1424,11 @@ def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None
         fm.ParallelRoundRunner = ParallelRoundRunner
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = kernel_launches(CheckedRunner.last, out_dir)
-
     trainer = holder["trainer"]
+    eva = getattr(trainer, "backbone_type", None) == "eva"
+    launches = kernel_launches(CheckedRunner.last, out_dir,
+                               {**ATTN_KERNELS, **ROPE_KERNELS} if eva else ATTN_KERNELS)
+
     with open(os.path.join(out_dir, "log.txt")) as f:
         log = f.read()
     evaluated = [int(c) for c in re.findall(r"Evaluate on the client(\d+)_test set", log)]
@@ -1399,12 +1487,13 @@ def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None
             raise AssertionError(f"the epochs ran {[e['batches'] for e in epochs]} batches, "
                                  f"the data gives {n_train} over {local_epochs} epochs")
         n_eval = sum(len(trainer.fed_test_loader_x_dict[c]) for c in evaluated)
-    # every batch runs each text block (and each ViT block) once.  The
-    # backward reaches every text block (the prompt context sits before
-    # block 0) and the ViT blocks from the first whose input carries a
+    # every batch runs each text block (and each ViT or EVA02 block) once.
+    # The backward reaches every text block (the prompt context sits before
+    # block 0) and the vision blocks from the first whose input carries a
     # gradient: block 1 when only adapters train, block 0 when the slice
     # projector (or a trainable ln_pre) sits before it, none when nothing in
-    # the image tower trains (PromptFL, GLP_OT with a frozen image encoder)
+    # the image tower trains (PromptFL, GLP_OT with a frozen image encoder).
+    # An EVA02 block splits q/k/v into heads with one RoPE call each way.
     bundle = getattr(trainer, "bundle", None)  # None: the Baseline trainer's Dassl backbone
     clip = bundle.clip_cfg if bundle is not None else None
     t = clip.transformer_layers if bundle is not None else 0
@@ -1412,19 +1501,22 @@ def run_cli(script, data_root, out_dir, rounds, dev, overrides=(), on_build=None
     if bundle is None:  # plain attention in the ViT, none elsewhere: no kernel launch
         v = v_bwd = 0
         width, layers = [trainer.fdim], [trainer.cfg.MODEL.BACKBONE.NAME or "cnn3"]
-    elif trainer.backbone_type == "vit":
-        v = clip.vision_layers
+    elif trainer.backbone_type in ("vit", "eva"):
+        v, vision_width = ((bundle.eva_cfg.vision_layers, bundle.eva_cfg.vision_width) if eva
+                           else (clip.vision_layers, clip.vision_width))
         if getattr(trainer, "is_3d_input", False) or "visual_ln_pre" in trainable:
             v_bwd = v
         else:
             v_bwd = v - 1 if "image_encoder_lora" in trainable else 0
-        width, layers = [clip.vision_width, clip.transformer_width], [v, t]
+        width, layers = [vision_width, clip.transformer_width], [v, t]
     else:  # the ResNet tower runs no attention kernel
         rn = trainer.bundle.rn_cfg
         v = v_bwd = 0
         width, layers = [rn.width, rn.embed_dim, clip.transformer_width], [list(rn.layers), t]
     expected = {"attention_fwd": (n_train + n_eval) * (v + t),
                 "attention_bwd": n_train * (v_bwd + t)}
+    if eva:
+        expected.update(rope_qkv_fwd=(n_train + n_eval) * v, rope_qkv_bwd=n_train * v_bwd)
     finals = {}
     for idx in range(args.num_users):
         with np.load(os.path.join(out_dir, f"global_client{idx}_final.npz")) as z:
@@ -1524,6 +1616,7 @@ def check_parallel_rounds(res, rounds, fenced=False):
 
 SLO_ROOT = os.path.join(REPO, "build", "chip_smoke_data")
 OCT_ROOT = os.path.join(REPO, "build", "chip_smoke_data_oct")
+EVA02_ROOT = os.path.join(REPO, "build", "chip_smoke_data_336")
 
 
 def _write_fixture_with(writer, root, **kw):
@@ -1904,6 +1997,30 @@ def parallel_rn50_path(dev):
     check_cli_run(res, 1)
     if not stats or not all(p["finite"] and p["moved"] for p in per_client):
         raise AssertionError(f"per-client BatchNorm statistics: {per_client}")
+    return res["launches"]
+
+
+def eva02_path(dev):
+    """scripts/fairfedlora_fairfedmed_eva02.sh with its ``--parallel_clients``
+    (EVA02-CLIP-L/14-336 at its published size, seeded weights) on an SLO
+    fixture at 336 px, 2 rounds: the launches of attention and of the RoPE
+    head split (counted from zero as every CLI path's), every local step a
+    replay of the step's CUDA graph, and the adapters on w1/w2/w3 in the
+    final weights."""
+    fixture = _write_fixture(EVA02_ROOT, size=336)
+    res, runner, finals, trainer = _parallel_run("eva02_path", EVA02_SCRIPT, EVA02_ROOT, 2, dev)
+    graphs = [g for step in runner._steps.values() for g in getattr(step, "graphs", {}).values()]
+    steps = sum(sum(r["n_steps"]) for r in res["rounds"])
+    res.update(fixture=fixture, step_calls=steps, graph_replays=sum(g.replays for g in graphs))
+    emit(res)
+    check_cli_run(res, 2)
+    if trainer.backbone_type != "eva" or res["model"] != "EVA02-CLIP-L-14-336":
+        raise AssertionError(f"the EVA02 launcher ran {res['model']} ({trainer.backbone_type})")
+    if not graphs or res["graph_replays"] != steps:
+        raise AssertionError(f"{res['graph_replays']} graph replays for {steps} local steps")
+    keys = [k for k in finals[0] if ".mlp.w" in k and ".lora_" in k]
+    if len(keys) != 3 * 3 * trainer.bundle.eva_cfg.vision_layers:
+        raise AssertionError(f"adapter keys in the final weights: {sorted(keys)[:9]} ...")
     return res["launches"]
 
 
@@ -3170,8 +3287,8 @@ def dist_path(dev):
 
 PATHS = ("main_path", "graph_step", "cli_path", "oct_path", "rn50_path", "rn50_oct_path", "ot_path",
          "promptfl_path", "fedotp_path", "clip_path", "fedprox_path", "parallel_cli_path",
-         "parallel_oct_path", "parallel_rn50_path", "parallel_branches", "parallel_equiv",
-         "chexmimic_path", "parallel_chexmimic", "cifar_path", "caltech_path",
+         "parallel_oct_path", "parallel_rn50_path", "eva02_path", "parallel_branches",
+         "parallel_equiv", "chexmimic_path", "parallel_chexmimic", "cifar_path", "caltech_path",
          "caltech_vit_parallel", "office_path", "resume_path", "baseline_path",
          "train_cli_path", "timing_path", "dist_path")
 
@@ -3186,7 +3303,9 @@ def kernels_line(rows, launches):
     memory and resident blocks from the CUDA runtime, waves = blocks / (SMs x
     resident blocks per SM), and bound share = bound / cold time.
     ``launches`` is main_path's count, ``launches_<path>`` every other
-    path's (counts are per kernel, the same on both shapes' rows)."""
+    path's (counts are per kernel, the same on both shapes' rows; None for a
+    phase that did not run).  Then the RoPE head split at EVA02's training
+    shape, with eva02_path's launches, the one path that runs it."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = []
     for shape in ("vision_train", "text_caltech"):
@@ -3209,8 +3328,8 @@ def kernels_line(rows, launches):
                 ptxas_kernel(log, entry), name=name, route="cuda", kernel=plan["route"],
                 source=f"fairfedmed_tpu_torch/csrc/{name}.cu", replaces=tpu_line,
                 shape=shape, n_L_dh=[n, length, dh], causal=row["causal"],
-                launches=launches["main_path"][name],
-                **{f"launches_{p}": launches[p][name] for p in PATHS[1:]},
+                launches=launches.get("main_path", {}).get(name),
+                **{f"launches_{p}": launches.get(p, {}).get(name) for p in PATHS[1:]},
                 max_abs_err=row[f"{kind}_max_abs_err"],
                 ms=row[f"kernel_{kind}_ms"], ms_cold=row[f"kernel_{kind}_ms_cold"],
                 ms_events=row[f"kernel_{kind}_ms_events"], host_ms=row[f"kernel_{kind}_host_ms"],
@@ -3222,15 +3341,33 @@ def kernels_line(rows, launches):
                 blocks=info["blocks"], blocks_per_sm=info["blocks_per_sm"],
                 slices_per_block=info["slices_per_block"],
                 waves=info["blocks"] / (sms * info["blocks_per_sm"])))
+    row = next(r for r in rows if r["shape"] == "rope_eva02_train")
+    log = _build.library_path("rope_qkv").with_suffix(".log").read_text()
+    for kind in ("fwd", "bwd"):
+        name = f"rope_qkv_{kind}"
+        out.append(dict(
+            ptxas_kernel(log, f"12{name}I13__nv_bfloat16"), name=name, route="cuda",
+            kernel="grid-stride, 8 elements a thread",
+            source="fairfedmed_tpu_torch/csrc/rope_qkv.cu",
+            replaces=None, shape=row["shape"], B_L_H_dh=row["B_L_H_dh"],
+            launches=launches.get("eva02_path", {}).get(name),
+            err_beyond_rtol=row[f"{kind}_err_beyond_rtol"], ms=row[f"kernel_{kind}_ms"],
+            ms_cold=row[f"kernel_{kind}_ms_cold"], ms_events=row[f"kernel_{kind}_ms_events"],
+            host_ms=row[f"kernel_{kind}_host_ms"], plain_ms=row[f"plain_{kind}_ms"],
+            bound_ms=row[f"{kind}_bound_ms"], bound_by=row[f"{kind}_bound_by"],
+            bound_share=row[f"{kind}_bound_ms"] / row[f"kernel_{kind}_ms_cold"]))
     return {"kernels": out}
 
 
 def _ensure_fixtures(names):
     """The fixtures the named phases read but an unselected phase writes."""
-    if any(n in names for n in ("resume_path", "baseline_path", "train_cli_path", "timing_path",
-                                "dist_path")) and "cli_path" not in names:
+    if any(n in names for n in ("rn50_path", "ot_path", "parallel_cli_path", "parallel_rn50_path",
+                                "parallel_branches", "parallel_equiv", "resume_path",
+                                "baseline_path", "train_cli_path", "timing_path", "dist_path")) \
+            and "cli_path" not in names:
         _write_fixture(SLO_ROOT)
-    if "timing_path" in names and "oct_path" not in names:
+    if any(n in names for n in ("rn50_oct_path", "parallel_oct_path", "timing_path")) \
+            and "oct_path" not in names:
         _write_fixture(OCT_ROOT, n_train=OCT_TRAIN, n_test=OCT_TEST, modality="oct_bscans")
     if "baseline_path" in names and "cifar_path" not in names:
         shutil.rmtree(CIFAR_ROOT, ignore_errors=True)
@@ -3240,8 +3377,8 @@ def _ensure_fixtures(names):
 def main(argv=()):
     """With no arguments every phase runs and the contract's lines are
     printed.  Phase names as arguments run only those phases (after the
-    kernel checks), to debug them: then no ``kernels`` line and no final
-    ``ok`` line."""
+    kernel checks), to debug them: then the ``kernels`` line counts only
+    their launches, and no final ``ok`` line."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -3279,10 +3416,10 @@ def main(argv=()):
         t0 = time.perf_counter()
         launches[name] = globals()[name](dev)
         emit({"phase": f"{name}_done", "s": time.perf_counter() - t0})
+    emit(kernels_line(rows, launches))
     if names != PATHS:
         emit({"phase": "total", "s": time.perf_counter() - t_start, "phases": list(names)})
         return 0
-    emit(kernels_line(rows, launches))
     emit({"phase": "total", "s": time.perf_counter() - t_start})
     print(nvidia_smi_line())
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -205,3 +205,90 @@ def convert_vit_clip(sd: dict, cfg: Optional[CLIPConfig] = None, dtype=np.float3
         **convert_text_tower(sd, dtype),
     }
     return params, cfg
+
+
+# EVA-CLIP keeps the text tower's keys under ``text.`` (``TextTransformer``)
+_EVA_TEXT_PREFIX = "text."
+ROPE_BUFFER_ATOL = 1e-3  # a table stored in fp16 is off by up to 2^-11 of values <= 1
+
+
+def _text_keys(sd: dict) -> dict:
+    """The text tower's keys at the root, OpenAI's layout, whether ``sd``
+    keeps them there or under ``text.`` (EVA-CLIP's release)."""
+    if "token_embedding.weight" in sd:
+        return sd
+    out = {k[len(_EVA_TEXT_PREFIX):]: v for k, v in sd.items() if k.startswith(_EVA_TEXT_PREFIX)}
+    out["logit_scale"] = sd["logit_scale"]
+    return out
+
+
+def convert_eva02_clip(sd: dict, cfg, dtype=np.float32):
+    """An EVA02-CLIP state dict (``visual.*`` in ``eva_vit_model.py``'s
+    layout, the text tower at the root or under ``text.``) -> (numpy
+    parameter tree, the text tower's CLIPConfig) for the tower ``cfg``
+    (``eva_clip.EVAConfig``).  q, k and v stack into one product with the
+    bias ``[q_bias, 0, v_bias]``.  The ``rope.freqs_cos`` / ``freqs_sin``
+    buffers are not read: where present they must equal the tables the tower
+    computes (``eva_clip.rope_tables``), else the checkpoint was made for
+    another grid or interpolation and this raises."""
+    from .eva_clip import rope_tables
+
+    def a(k):
+        return np.asarray(sd[f"visual.{k}"], dtype)
+
+    layers = len({k.split(".")[2] for k in sd if k.startswith("visual.blocks.")})
+    width = a("patch_embed.proj.weight").shape[0]
+    want = {"vision_layers": (layers, cfg.vision_layers), "vision_width": (width, cfg.vision_width),
+            "vision_patch_size": (a("patch_embed.proj.weight").shape[-1], cfg.vision_patch_size),
+            "positions": (a("pos_embed").shape[-2], cfg.grid_size ** 2 + 1),
+            "mlp_hidden": (a("blocks.0.mlp.w1.weight").shape[0], cfg.mlp_hidden),
+            "embed_dim": (a("head.weight").shape[0], cfg.embed_dim)}
+    bad = {k: v for k, v in want.items() if v[0] != v[1]}
+    if bad:
+        raise ValueError(f"EVA02 checkpoint does not fit the tower: {bad} (checkpoint, tower)")
+    cos, sin = (t.numpy() for t in rope_tables(cfg))
+    for key in sorted(k for k in sd if k.startswith("visual.") and ".rope.freqs_" in k):
+        table = cos if key.endswith("freqs_cos") else sin
+        got = np.asarray(sd[key], np.float64)
+        if got.shape != table.shape or not np.allclose(got, table, rtol=0, atol=ROPE_BUFFER_ATOL):
+            raise ValueError(f"{key} is not the RoPE table of a {cfg.grid_size}x{cfg.grid_size} "
+                             f"grid interpolated from {cfg.pt_hw_seq_len}")
+
+    def stack(suffix):
+        return np.stack([a(f"blocks.{i}.{suffix}") for i in range(layers)])
+
+    def ln(prefix):
+        return {"weight": stack(f"{prefix}.weight"), "bias": stack(f"{prefix}.bias")}
+
+    def linear(prefix):
+        return {"weight": stack(f"{prefix}.weight"), "bias": stack(f"{prefix}.bias")}
+
+    q_bias = stack("attn.q_bias")
+    qkv = {"weight": np.concatenate([stack(f"attn.{n}_proj.weight") for n in "qkv"], axis=1),
+           "bias": np.concatenate([q_bias, np.zeros_like(q_bias), stack("attn.v_bias")], axis=1)}
+    visual = {
+        "patch_embed": {"weight": a("patch_embed.proj.weight"), "bias": a("patch_embed.proj.bias")},
+        "cls_token": a("cls_token").reshape(width),
+        "pos_embed": a("pos_embed").reshape(-1, width),
+        "blocks": {
+            "norm1": ln("norm1"), "norm2": ln("norm2"),
+            "attn": {"qkv": qkv, "inner_attn_ln": ln("attn.inner_attn_ln"),
+                     "proj": linear("attn.proj")},
+            "mlp": {"w1": linear("mlp.w1"), "w2": linear("mlp.w2"), "ffn_ln": ln("mlp.ffn_ln"),
+                    "w3": linear("mlp.w3")},
+        },
+        "norm": {"weight": a("norm.weight"), "bias": a("norm.bias")},
+        "head": {"weight": a("head.weight"), "bias": a("head.bias")},
+    }
+    text_sd = _text_keys(sd)
+    tw = text_sd["ln_final.weight"].shape[0]
+    clip_cfg = CLIPConfig(
+        embed_dim=cfg.embed_dim, image_resolution=cfg.image_resolution,
+        vision_layers=cfg.vision_layers, vision_width=cfg.vision_width,
+        vision_patch_size=cfg.vision_patch_size,
+        context_length=text_sd["positional_embedding"].shape[0],
+        vocab_size=text_sd["token_embedding.weight"].shape[0], transformer_width=tw,
+        transformer_heads=tw // 64,
+        transformer_layers=len({k.split(".")[2] for k in text_sd
+                                if k.startswith("transformer.resblocks")}))
+    return {"visual": visual, **convert_text_tower(text_sd, dtype)}, clip_cfg

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("attention_fwd", "attention_bwd", "wgmma_check")
+SOURCES = ("attention_fwd", "attention_bwd", "rope_qkv", "wgmma_check")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -38,6 +38,10 @@ SIGNATURES = {
     "attention_bwd": {
         "ffm_attention_bwd": [_VOID] * 11 + [_INT] * 4 + [_VOID],
         "ffm_attention_bwd_info": [_INT] * 4 + [_VOID],
+    },
+    "rope_qkv": {
+        "ffm_rope_qkv_fwd": [_VOID] * 6 + [_INT] * 5 + [_VOID],
+        "ffm_rope_qkv_bwd": [_VOID] * 6 + [_INT] * 5 + [_VOID],
     },
     "wgmma_check": {
         "ffm_wgmma_check": [_VOID] * 3 + [_INT] * 2 + [_VOID],

@@ -298,10 +298,11 @@ def flash_attention(q, k, v, mask=None, scale=None):
     """Fused attention.  q/k/v: [B, H, L, dh]; mask: additive [L, L] or None.
 
     The scale (dh^-0.5 by default) is folded into q before the kernel, as in
-    the JAX ``flash_attention``.  Differentiable in q, k and v."""
+    the JAX ``flash_attention``; at scale 1 (q arrives scaled, as the RoPE
+    op gives it) q is taken as it is.  Differentiable in q, k and v."""
     b, h, length, dh = q.shape
     scale = dh ** -0.5 if scale is None else scale
-    q = _dense((q * scale).reshape(b * h, length, dh))
+    q = _dense((q if scale == 1.0 else q * scale).reshape(b * h, length, dh))
     k = _dense(k.reshape(b * h, length, dh))
     v = _dense(v.reshape(b * h, length, dh))
     if mask is not None:

@@ -2,9 +2,11 @@
 
 Port of ``fairfedmed_tpu/train/clip_common.py``.  ``load_clip_bundle`` plays
 the role of load_clip_to_cpu + clip.build_model (trainers/GLP_OT_SVLoRA.py:
-23-43, clip/model.py:633-670): an OpenAI ViT checkpoint found under
-``DATASET.ROOT`` is converted and loaded; without one the backbone is a
-seeded random init.  Tiny ``test-vit`` presets keep the tests fast.
+23-43, clip/model.py:633-670): an OpenAI ViT or ResNet checkpoint, or an
+EVA02-CLIP one, found under ``DATASET.ROOT`` is converted and loaded;
+without one the backbone is a seeded random init.  Tiny ``test-vit``,
+``test-rn`` and ``test-eva`` presets keep the tests fast.  ``encode_image``
+is the one dispatch on the bundle's tower that the trainers call.
 """
 
 from __future__ import annotations
@@ -17,10 +19,10 @@ import torch.nn.functional as F
 from ..core.device import resolve_device
 from ..fed.dist import all_reduce_sum
 from ..core.precision import Policy, policy_from_prec
-from ..models import converter, resnet_clip
+from ..models import converter, eva_clip, resnet_clip
 from ..models.clip_model import (PRESETS, CLIPConfig, init_clip_params, init_text_params,
-                                 tree_map)
-from ..utils.profiling import stamp
+                                 tree_map, vit_encode)
+from ..utils.profiling import span, stamp
 
 TEST_PRESETS = {
     "test-vit": CLIPConfig(
@@ -56,8 +58,9 @@ class CLIPBundle:
     clip_cfg: CLIPConfig
     policy: Policy
     pretrained: bool
-    backbone_type: str = "vit"  # 'vit' | 'resnet'
+    backbone_type: str = "vit"  # 'vit' | 'resnet' | 'eva'
     rn_cfg: resnet_clip.ResNetConfig = None  # the ResNet image tower's shape
+    eva_cfg: eva_clip.EVAConfig = None  # the EVA02 image tower's shape
     visual_bn: dict = None  # its BatchNorm affine tree (fp32)
     visual_stats: dict = None  # its BatchNorm running statistics (fp32)
 
@@ -94,6 +97,40 @@ def _load_resnet_bundle(cfg, name: str, policy: Policy, device) -> CLIPBundle:
                       backbone_type="resnet", rn_cfg=rn_cfg, visual_bn=bn, visual_stats=stats)
 
 
+def _load_eva_bundle(cfg, name: str, policy: Policy, device) -> CLIPBundle:
+    eva_cfg, clip_cfg = eva_clip.PRESETS[name]
+    # the tiny preset loads a checkpoint too, where one is found (the tests'
+    # seeded weights in the release's layout)
+    ckpt = converter.find_checkpoint(name, cfg.DATASET.ROOT) \
+        if cfg.MODEL.BACKBONE.PRETRAINED else None
+    if ckpt is not None:
+        print(f"Loading CLIP (backbone: {name}) from {ckpt}")
+        stamp("clip_bundle:load_start")
+        with span("bundle.convert"):
+            tree, clip_cfg = converter.convert_eva02_clip(converter.load_torch_state_dict(ckpt),
+                                                          eva_cfg)
+        stamp("clip_bundle:convert_done")
+        with span("bundle.cast"):
+            params = converter.params_from_numpy(tree, device, policy.param_dtype)
+        stamp("clip_bundle:params_cast_done")
+        return CLIPBundle(params=params, clip_cfg=clip_cfg, policy=policy, pretrained=True,
+                          backbone_type="eva", eva_cfg=eva_cfg)
+    if not name.startswith("test"):
+        print(f"WARNING: no checkpoint found for {name}; using random init "
+              f"(place {converter.checkpoint_name(name)} under DATASET.ROOT "
+              "to load pretrained weights)")
+    # drawn on the CPU: the same seed gives the same weights on every device
+    gen = torch.Generator().manual_seed(cfg.SEED if cfg.SEED >= 0 else 0)
+    visual = eva_clip.init_eva_visual(gen, eva_cfg)
+    with span("bundle.cast"):
+        params = init_text_params(gen, clip_cfg, dtype=policy.param_dtype, device=device)
+        params["visual"] = tree_map(lambda a: a.to(device, policy.param_dtype), visual)
+        params["logit_scale"] = params["logit_scale"].float()
+    stamp("clip_bundle:params_cast_done")
+    return CLIPBundle(params=params, clip_cfg=clip_cfg, policy=policy, pretrained=False,
+                      backbone_type="eva", eva_cfg=eva_cfg)
+
+
 def load_clip_bundle(cfg, prec: str, device=None) -> CLIPBundle:
     """The frozen CLIP backbone named by ``cfg.MODEL.BACKBONE.NAME`` on
     ``device`` (default ``cuda``): the OpenAI checkpoint when one is found
@@ -106,6 +143,8 @@ def load_clip_bundle(cfg, prec: str, device=None) -> CLIPBundle:
     policy = policy_from_prec(prec)
     if name.startswith("RN") or name == "test-rn":
         return _load_resnet_bundle(cfg, name, policy, device)
+    if name in eva_clip.PRESETS:
+        return _load_eva_bundle(cfg, name, policy, device)
     if name in TEST_PRESETS:
         clip_cfg = TEST_PRESETS[name]
     else:
@@ -129,6 +168,33 @@ def load_clip_bundle(cfg, prec: str, device=None) -> CLIPBundle:
     params["logit_scale"] = params["logit_scale"].float()
     stamp("clip_bundle:params_cast_done")
     return CLIPBundle(params=params, clip_cfg=clip_cfg, policy=policy, pretrained=False)
+
+
+def encode_image(bundle: CLIPBundle, visual: dict, x: torch.Tensor, return_tokens: bool,
+                 lora: dict = None, attr_mix: torch.Tensor = None, lora_scaling: float = 0.0,
+                 bn: dict = None, stats: dict = None, train: bool = False,
+                 attnpool_lora: dict = None) -> tuple:
+    """(features, BatchNorm statistics) of images ``x`` through the bundle's
+    tower: pooled [B, embed_dim], or every token [B, 1+L, embed_dim] when
+    ``return_tokens``.  The ResNet tower takes its BatchNorm tree ``bn`` and
+    statistics ``stats`` and, in training, returns new statistics; the ViT
+    and EVA02 towers have none and return ``stats`` as given.  Adapters:
+    ``lora`` on the tower's blocks (ViT ``c_fc``/``c_proj``, EVA02
+    ``w1``/``w2``/``w3``, ResNet 1x1 convolutions), ``attnpool_lora`` on the
+    ResNet's pool."""
+    kind, policy = bundle.backbone_type, bundle.policy
+    if kind == "resnet":
+        return resnet_clip.resnet_encode(visual, bn, stats, x, bundle.rn_cfg, policy, train=train,
+                                         return_tokens=return_tokens, lora=lora,
+                                         attnpool_lora=attnpool_lora, attr_mix=attr_mix,
+                                         lora_scaling=lora_scaling)
+    if kind == "eva":
+        return eva_clip.eva_encode(visual, x, bundle.eva_cfg, policy, return_tokens=return_tokens,
+                                   lora=lora, attr_mix=attr_mix, lora_scaling=lora_scaling), stats
+    if kind == "vit":
+        return vit_encode(visual, x, bundle.clip_cfg, policy, return_tokens=return_tokens,
+                          lora=lora, attr_mix=attr_mix, lora_scaling=lora_scaling), stats
+    raise ValueError(f"no image tower of backbone type {kind!r}")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -5,8 +5,8 @@ trainers/GLP_OT.py:390-568 and trainers/GLP_OT_SVLoRA.py:575-1054): CLIP
 with a multi-prompt learner, optional Sinkhorn or COT optimal transport
 between image patch tokens and prompts, and, in GLP_OT_SVLoRA, LoRA /
 SVLoRA / FairLoRA adapters on the image tower whose singular values blend by
-the sample's demographic group.  Both backbones (ViT, ModifiedResNet) and
-both input kinds (2D images; 3D OCT volumes, cut into slices of
+the sample's demographic group.  The three backbones (ViT, ModifiedResNet,
+EVA02) and both input kinds (2D images; 3D OCT volumes, cut into slices of
 ``DIM_PER_3D_SLICE`` B-scans that a trainable 5x5 conv projects to 3
 channels) run on the medical datasets (FairFedMed, FedChexMimic), and 2D on
 CIFAR-10/100, whose uint8 NHWC batches are normalised and resized on the
@@ -40,14 +40,14 @@ from ...core.pytree import flatten_paths, unflatten_like
 from ...data.transforms import device_preprocess
 from ...evaluation import metrics as eval_metrics
 from ...fed.dist import all_reduce_sum
-from ...models.clip_model import l2_normalize, pool_index, text_encode, vit_encode
+from ...models import eva_clip
+from ...models.clip_model import l2_normalize, pool_index, text_encode
 from ...models.prompt_learner import assemble_prompts, init_prompt_learner
-from ...models.resnet_clip import resnet_encode
 from ...ops.sinkhorn import entropic_cot, sinkhorn
 from ...utils.profiling import span, stamp
 from ...utils.registry import DATASET_REGISTRY, TRAINER_REGISTRY
-from ..clip_common import (accuracy_from_logits, cross_entropy, fairness_confidence_loss,
-                           fedprox_term, load_clip_bundle)
+from ..clip_common import (accuracy_from_logits, cross_entropy, encode_image,
+                           fairness_confidence_loss, fedprox_term, load_clip_bundle)
 from ..engine import TrainerX
 from ..optim import FunctionalOptimizer, build_lr_scheduler, build_optimizer, set_learning_rate
 
@@ -69,7 +69,8 @@ GROUP_TABLES = {
         "age": ["0-60", "60+"],
     },
 }
-LORA_PARTS = ("c_fc", "c_proj")
+# the transformer towers' adapted MLP products, stacked per layer
+LORA_PARTS = {"vit": ("c_fc", "c_proj"), "eva": eva_clip.LORA_PARTS}
 ATTNPOOL_PROJ = ("q_proj", "k_proj", "v_proj", "c_proj")
 BN_STATS = "__bn_stats__"  # the ResNet running statistics in a client's parallel state
 
@@ -91,8 +92,11 @@ def _leaves(tree) -> list:
     return list(flatten_paths(tree).values())
 
 
-def _lora_key(i: int, part: str, leaf: str) -> str:
-    return f"image_encoder.transformer.resblocks.{i}.mlp.{part}.{leaf}.weight"
+def _lora_key(kind: str, i: int, part: str, leaf: str) -> str:
+    """A stacked adapter leaf's reference key, layer ``i``: the ViT's
+    ``transformer.resblocks``, EVA02's ``blocks`` (``eva_vit_model.py``)."""
+    blocks = "blocks" if kind == "eva" else "transformer.resblocks"
+    return f"image_encoder.{blocks}.{i}.mlp.{part}.{leaf}.weight"
 
 
 def _stat_key(path: str) -> str:
@@ -154,8 +158,12 @@ class GLPOTBase(TrainerX):
 
         # Without LoRA, UNFREEZE_IMAGE_ENCODER trains the ViT's ln_pre, the
         # only image-encoder parameter the reference hands the optimizer
-        # (GLP_OT.py:414-426,444-453).  UNFREEZE_TEXT_ENCODER is a no-op
-        # there (no text parameter reaches the optimizer), and here.
+        # (GLP_OT.py:414-426,444-453); EVA02 has no ln_pre to train.
+        # UNFREEZE_TEXT_ENCODER is a no-op there (no text parameter reaches
+        # the optimizer), and here.
+        if lc.UNFREEZE_IMAGE_ENCODER and not self.use_lora and self.backbone_type == "eva":
+            raise NotImplementedError("GLP_OT's UNFREEZE_IMAGE_ENCODER trains the image tower's "
+                                      "ln_pre, which EVA02 does not have")
         if lc.UNFREEZE_IMAGE_ENCODER and not self.use_lora and self.backbone_type == "vit":
             trainable["visual_ln_pre"] = {k: v.detach().float().clone()
                                           for k, v in bundle.params["visual"]["ln_pre"].items()}
@@ -179,9 +187,9 @@ class GLPOTBase(TrainerX):
                 bundle.params["visual_bn"] = bundle.visual_bn
 
         # adapters (apply_lora_to_model, GLP_OT_SVLoRA.py:503-573): ViT, every
-        # resblock's mlp.c_fc / mlp.c_proj, stacked per layer; ResNet, every
-        # bottleneck's 1x1 conv1 / conv3 (FairLoRA) and the attnpool
-        # projections (plain LoRA)
+        # resblock's mlp.c_fc / mlp.c_proj, stacked per layer; EVA02 the same
+        # on its SwiGLU's mlp.w1 / w2 / w3; ResNet, every bottleneck's 1x1
+        # conv1 / conv3 (FairLoRA) and the attnpool projections (plain LoRA)
         self.lora_scaling = 0.0
         if self.use_lora and lc.UNFREEZE_IMAGE_ENCODER:
             self.lora_scaling = lc.ALPHA / lc.RANK
@@ -191,17 +199,21 @@ class GLPOTBase(TrainerX):
                                  num_groups=self.num_groups, global_s=lc.GLOBAL_S,
                                  device=self.device)
 
-            if self.backbone_type == "vit":
+            if self.backbone_type in LORA_PARTS:
                 vw = bundle.clip_cfg.vision_width
-                dims = {"c_fc": (vw, 4 * vw), "c_proj": (4 * vw, vw)}
+                if self.backbone_type == "vit":
+                    dims = {"c_fc": (vw, 4 * vw), "c_proj": (4 * vw, vw)}
+                else:
+                    hidden = bundle.eva_cfg.mlp_hidden
+                    dims = {"w1": (vw, hidden), "w2": (vw, hidden), "w3": (hidden, vw)}
                 lora = {}
-                for part in LORA_PARTS:
+                for part in LORA_PARTS[self.backbone_type]:
                     per_layer = [adapter(*dims[part])
                                  for _ in range(bundle.clip_cfg.vision_layers)]
                     lora[part] = {leaf: torch.stack([p[leaf] for p in per_layer])
                                   for leaf in per_layer[0]}
                 trainable["image_encoder_lora"] = lora
-            else:
+            elif self.backbone_type == "resnet":
                 rn = bundle.rn_cfg
                 lora, inplanes = {}, rn.width
                 for li, nblocks in enumerate(rn.layers):
@@ -217,6 +229,8 @@ class GLPOTBase(TrainerX):
                 trainable["attnpool_lora"] = {
                     name: adapter(ed, rn.output_dim if name == "c_proj" else ed, "LoRA")
                     for name in ATTNPOOL_PROJ}
+            else:
+                raise ValueError(f"no adapters for backbone type {self.backbone_type!r}")
 
         stamp("build:lora_init_done")
         # 3D slice projector (GLP_OT_SVLoRA.py:584-595)
@@ -299,19 +313,13 @@ class GLPOTBase(TrainerX):
             batch = x.shape[0] if attr is None else attr.shape[0]
             attr_mix = group_mix(attr, self.num_groups, batch, device=self.device)
 
-        new_stats = stats
-        if self.backbone_type == "resnet":
-            tokens, new_stats = resnet_encode(
-                visual, trainable.get("visual_bn", self.frozen.get("visual_bn")),
-                stats, x, self.bundle.rn_cfg, policy, train=train, return_tokens=True,
-                lora=lora, attnpool_lora=trainable.get("attnpool_lora"),
-                attr_mix=attr_mix, lora_scaling=self.lora_scaling)
-        else:
-            # the JAX package runs a slice batch in chunks of b rows (a TPU
-            # schedule); every row is independent, so one pass gives the
-            # same tokens
-            tokens = vit_encode(visual, x, self.bundle.clip_cfg, policy, return_tokens=True,
-                                lora=lora, attr_mix=attr_mix, lora_scaling=self.lora_scaling)
+        # the JAX package runs a ViT slice batch in chunks of b rows (a TPU
+        # schedule); every row is independent, so one pass gives the same tokens
+        tokens, new_stats = encode_image(
+            self.bundle, visual, x, return_tokens=True, lora=lora, attr_mix=attr_mix,
+            lora_scaling=self.lora_scaling,
+            bn=trainable.get("visual_bn", self.frozen.get("visual_bn")), stats=stats,
+            train=train, attnpool_lora=trainable.get("attnpool_lora"))
         image_feats = l2_normalize(tokens[:, 1:])  # [B', M, d]
         bp, m, d = image_feats.shape
 
@@ -466,8 +474,9 @@ class GLPOTBase(TrainerX):
     @property
     def supports_data_axis(self) -> bool:
         """ResNet BatchNorm batch statistics would be per data shard; a
-        within-client data split would change them (JAX glp_ot.py:586-589)."""
-        return self.backbone_type == "vit"
+        within-client data split would change them (JAX glp_ot.py:586-589).
+        The transformer towers have no batch statistics."""
+        return self.backbone_type in ("vit", "eva")
 
     @property
     def parallel_step_graphable(self) -> bool:
@@ -561,7 +570,7 @@ class GLPOTBase(TrainerX):
     # ------------------------------------------------------------- weights
     def _named_state(self) -> dict:
         """The trainable state (and BN statistics) as live tensors under the
-        reference's keys, ViT LoRA still stacked per layer."""
+        reference's keys, ViT and EVA02 LoRA still stacked per layer."""
         tr = self.trainable
         out = {"prompt_learner.ctx": tr["prompt_learner"]["ctx"]}
         for name, key in (("visual_ln_pre", "image_encoder.ln_pre"),
@@ -586,12 +595,14 @@ class GLPOTBase(TrainerX):
     def state_dict(self):
         """Flat numpy dict with reference-style keys; ViT LoRA leaves unstacked
         to ``image_encoder.transformer.resblocks.{i}.mlp.{c_fc,c_proj}.{lora_*}.weight``
+        (EVA02: ``image_encoder.blocks.{i}.mlp.{w1,w2,w3}.{lora_*}.weight``)
         so lora_S keeps its [num_groups, rank] shape for the group-weighted
         FedAvg predicate."""
         named = self._named_state()
         lora = self.trainable.get("image_encoder_lora")
-        if lora is not None and self.backbone_type == "vit":
-            for part in LORA_PARTS:
+        kind = self.backbone_type
+        if lora is not None and kind in LORA_PARTS:
+            for part in LORA_PARTS[kind]:
                 for leaf, arr in lora[part].items():
                     named[f"__stacked__.{part}.{leaf}"] = arr
         out = {}
@@ -599,7 +610,7 @@ class GLPOTBase(TrainerX):
             if key.startswith("__stacked__."):
                 _, part, leaf = key.split(".", 2)
                 for i in range(arr.shape[0]):
-                    out[_lora_key(i, part, leaf)] = arr[i]
+                    out[_lora_key(kind, i, part, leaf)] = arr[i]
             else:
                 out[key] = arr
         return out
@@ -620,11 +631,12 @@ class GLPOTBase(TrainerX):
         package's opt state does.  ``strict`` raises on a missing key."""
         targets = self._named_state()
         lora = self.trainable.get("image_encoder_lora")
-        if lora is not None and self.backbone_type == "vit":
-            for part in LORA_PARTS:
+        kind = self.backbone_type
+        if lora is not None and kind in LORA_PARTS:
+            for part in LORA_PARTS[kind]:
                 for leaf, arr in lora[part].items():
                     for i in range(arr.shape[0]):
-                        targets[_lora_key(i, part, leaf)] = arr[i]
+                        targets[_lora_key(kind, i, part, leaf)] = arr[i]
         missing = [k for k in targets if k not in state]
         if strict and missing:
             raise KeyError(f"Missing keys: {missing[:3]}...")

@@ -36,12 +36,12 @@ import torch.distributed as dist
 from ...core.pytree import flatten_paths, unflatten_like
 from ...data.transforms import device_preprocess
 from ...fed.dist import all_reduce_sum
-from ...models.clip_model import l2_normalize, pool_index, text_encode, vit_encode
+from ...models.clip_model import l2_normalize, pool_index, text_encode
 from ...models.prompt_learner import assemble_prompts, init_prompt_learner
-from ...models.resnet_clip import resnet_encode
 from ...utils.profiling import span
 from ...utils.registry import TRAINER_REGISTRY
-from ..clip_common import accuracy_from_logits, cross_entropy, fedprox_term, load_clip_bundle
+from ..clip_common import (accuracy_from_logits, cross_entropy, encode_image, fedprox_term,
+                           load_clip_bundle)
 from ..engine import TrainerX
 from ..optim import FunctionalOptimizer, build_lr_scheduler, build_optimizer, set_learning_rate
 from .glp_ot import MEDICAL_DATASETS, check_dataset
@@ -113,13 +113,9 @@ class _CosineCLIPTrainer(TrainerX):
         ctx = self.ctx if ctx is None else ctx
         x = self._preprocess(image)
         frozen = self.frozen
-        if self.backbone_type == "resnet":
-            # BatchNorm in inference mode: the image encoder is frozen entirely
-            pooled, _ = resnet_encode(frozen["visual"], frozen["visual_bn"], frozen["visual_stats"],
-                                      x, self.bundle.rn_cfg, self.policy, train=False,
-                                      return_tokens=False)
-        else:
-            pooled = vit_encode(frozen["visual"], x, self.bundle.clip_cfg, self.policy)
+        # ResNet BatchNorm in inference mode: the image encoder is frozen entirely
+        pooled, _ = encode_image(self.bundle, frozen["visual"], x, return_tokens=False,
+                                 bn=frozen.get("visual_bn"), stats=frozen.get("visual_stats"))
         cd = self.policy.compute_dtype
         pooled = l2_normalize(pooled)
         prompts = assemble_prompts(ctx.to(cd), self.prompt_state)

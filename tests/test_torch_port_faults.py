@@ -105,7 +105,7 @@ def test_fault1_promptfl_cosine_product_in_compute_type(fixture_root, monkeypatc
     pooled = rng.standard_normal((img.shape[0], 32)).astype(np.float32)
     text = pooled[:2] + 0.3 * rng.standard_normal((2, 32)).astype(np.float32)  # cosines near 0.9
     pooled_b, text_b = (torch.tensor(a).to(torch.bfloat16) for a in (pooled, text))
-    monkeypatch.setattr(tpfl, "vit_encode", lambda *a, **k: pooled_b)
+    monkeypatch.setattr(tpfl, "encode_image", lambda *a, **k: (pooled_b, None))
     monkeypatch.setattr(tpfl, "text_encode", lambda *a, **k: text_b)
     monkeypatch.setattr(jpfl, "vit_encode", lambda *a, **k: jnp.asarray(pooled_b.float().numpy(),
                                                                          jnp.bfloat16))

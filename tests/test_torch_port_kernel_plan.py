@@ -113,8 +113,15 @@ def test_launch_plan_of_every_kernel_shape(shape):
             assert fwd["slices_per_block"] == max(1, 4 // fwd["warps_per_slice"])
     else:
         assert fwd["route"] == bwd["route"] == "wgmma"
-        # one block reads a head's K and V once: no block per 128 rows
-        assert fwd["blocks"] <= n and bwd["blocks"] == n * (2 if 2 * n <= SMS else 1)
+        tiles = -(-length // A.WG_ROWS)
+        if tiles <= 4:
+            # one block reads a head's K and V once: no block per 128 rows
+            assert fwd["blocks"] <= n and bwd["blocks"] == n * (2 if 2 * n <= SMS else 1)
+        else:
+            # EVA02's 577 rows: a block per head and group of 4 query tiles
+            # (K and V through a ring of 4 slots), the backward in two launches
+            assert fwd["blocks"] == bwd["blocks"] == n * -(-tiles // 4)
+            assert (fwd["launches"], bwd["launches"]) == (1, 2)
 
 
 @pytest.mark.parametrize("dh", [16, 32, 64])

@@ -252,3 +252,91 @@ def test_packed_kernels_with_a_partial_last_block(cuda_device, length):
     for got, ref in pairs:
         err = (got.float() - ref.float()).abs().max().item()
         assert err <= 2e-2 * max(1.0, ref.float().abs().max().item()), err
+
+
+# EVA02-CLIP-L/14-336: 16 heads of 64 over 577 tokens (more than 4 tiles of
+# 64 rows: the forward's ring of K/V slots, the backward's two launches), the
+# training step's 32 images and the evaluation's batches of 100
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [32 * 16, 100 * 16])
+def test_kernels_at_eva02_length(cuda_device, n):
+    q, k, v, do = _qkv(cuda_device, n, 577, 64, torch.bfloat16, seed=n)
+    o, lse = A.attention_fwd(q, k, v)
+    grads = A.attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    pairs = [(o, A.reference_attention(q, k, v))]
+    pairs += list(zip(grads, A.reference_attention_bwd(q, k, v, do)))
+    for got, ref in pairs:
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 2e-2 * max(1.0, ref.float().abs().max().item()), err
+
+
+def _rope_inputs(device, b, length, heads, dh, dtype, seed):
+    """Packed q/k/v, the three heads' gradients and arbitrary fp32 tables
+    (every dim its own angle, so a pairing mistake shows)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn(b, length, 3 * heads * dh, device=device, generator=gen).to(dtype)
+    grads = [torch.randn(b * heads, length, dh, device=device, generator=gen).to(dtype)
+             for _ in range(3)]
+    angles = 6 * torch.rand(length - 1, dh, device=device, generator=gen)
+    return qkv, grads, angles.cos(), angles.sin()
+
+
+# the kernels compute in fp32 and round once, as the plain version does; the
+# fp32 values of the two sides differ by FMA contraction alone, a few fp32
+# ulps of the largest input (absolute 1e-6 of it), and bf16 adds one
+# rounding of either side (relative 2^-7); fp32 outputs to rounding (1e-6)
+_ROPE_RTOL = {torch.float32: 1e-6, torch.bfloat16: 2 ** -7}
+
+
+def _rope_close(got, want, dtype, scale):
+    return bool(((got.float() - want.float()).abs()
+                 <= _ROPE_RTOL[dtype] * want.float().abs() + 1e-6 * scale).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,length,heads,dh", [(32, 577, 16, 64), (100, 577, 16, 64),
+                                               (3, 2, 2, 8), (5, 7, 3, 16), (1, 19, 1, 64),
+                                               (2, 50, 4, 24)])
+def test_rope_kernels_match_plain_on_card(cuda_device, dtype, b, length, heads, dh):
+    from fairfedmed_tpu_torch.ops import rope as R
+
+    qkv, grads, cos, sin = _rope_inputs(cuda_device, b, length, heads, dh, dtype, seed=length)
+    before = (R.rope_qkv_fwd.launches, R.rope_qkv_bwd.launches)
+    got = list(R.rope_qkv_fwd(qkv, cos, sin, heads))
+    got.append(R.rope_qkv_bwd(*grads, cos, sin, heads))
+    torch.cuda.synchronize()
+    assert (R.rope_qkv_fwd.launches, R.rope_qkv_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = list(R.reference_rope_qkv(qkv, cos, sin, heads))
+    want.append(R.reference_rope_qkv_bwd(*grads, cos, sin, heads))
+    scale = max(t.float().abs().max().item() for t in [qkv, *grads])
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert _rope_close(g, w, dtype, scale), (g.float() - w.float()).abs().max().item()
+
+
+@pytest.mark.gpu
+def test_rope_op_on_card_goes_through_the_kernels(cuda_device):
+    from fairfedmed_tpu_torch.ops import rope as R
+
+    qkv, grads, cos, sin = _rope_inputs(cuda_device, 4, 37, 2, 64, torch.float32, seed=3)
+    qkv.requires_grad_(True)
+    before = (R.rope_qkv_fwd.launches, R.rope_qkv_bwd.launches)
+    outs = R.rope_qkv(qkv, cos, sin, 2)
+    torch.autograd.backward(outs, grads)
+    assert (R.rope_qkv_fwd.launches, R.rope_qkv_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = R.reference_rope_qkv_bwd(*grads, cos, sin, 2)
+    assert (qkv.grad - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_rope_kernel_wrapper_takes_cuda_tensors_only():
+    from fairfedmed_tpu_torch.ops import rope as R
+
+    qkv, grads, cos, sin = _rope_inputs("cpu", 2, 5, 2, 8, torch.float32, seed=1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        R.rope_qkv_fwd(qkv, cos, sin, 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        R.rope_qkv_bwd(*grads, cos, sin, 2)
+    with pytest.raises(ValueError, match="packed"):
+        R.rope_qkv_fwd(qkv[..., :-1], cos, sin, 2)

@@ -176,7 +176,7 @@ def test_chip_smoke_keeps_the_launchers_parallel_switch():
     import chip_smoke
 
     scripts = sorted(glob.glob(str(chip_smoke.REPO) + "/scripts/**/*.sh", recursive=True))
-    assert len(scripts) == 8
+    assert len(scripts) == 9  # 5 FairFedMed launchers (EVA02 the fifth), 4 FedChexMimic
     for path in scripts:
         seq, par = chip_smoke.script_flags(path), chip_smoke.script_flags(path, parallel=True)
         assert "--parallel_clients" not in seq and par.count("--parallel_clients") == 1, path
